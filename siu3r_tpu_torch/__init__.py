@@ -1,0 +1,14 @@
+"""SIU3R on PyTorch and CUDA: the two-view recon+seg forward of ``siu3r_tpu``
+rebuilt for one NVIDIA H100.
+
+The JAX package ``siu3r_tpu`` is the reference each module here is held
+against; this package imports neither it nor JAX. Attention (with and without
+RoPE2D) and multi-scale deformable attention run through hand-written CUDA
+kernels (``csrc/``, built by ``kernels/_build.py`` at first use); on CPU
+tensors every kernel wrapper runs its plain PyTorch version instead.
+"""
+
+__version__ = "0.1.0"
+
+from siu3r_tpu_torch.device import resolve_device  # noqa: F401
+from siu3r_tpu_torch.gaussians import Gaussians  # noqa: F401

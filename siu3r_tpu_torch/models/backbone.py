@@ -1,0 +1,109 @@
+"""Two-view asymmetric CroCo backbone, counterpart of
+``siu3r_tpu/models/backbone.py:AsymmetricCroCo``.
+
+A shared ViT encoder over both views with an intrinsic token (a Linear(9 -> C)
+of the flattened intrinsics) appended at the synthetic position (grid_h, 0);
+then two decoders, ``dec_blocks`` for view 1 and ``dec_blocks2`` for view 2,
+each layer cross-attending the other view's *pre-layer* tokens. The JAX
+package's ``nn.scan`` stacks become Python loops over ``nn.ModuleList``s.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from siu3r_tpu_torch.config import CrocoCfg
+from siu3r_tpu_torch.models.layers import Block, DecoderBlock, LayerNorm, PatchEmbed
+
+
+@dataclasses.dataclass
+class BackboneOutput:
+    feat1: torch.Tensor  # [B, L, C_enc] final encoder feat, intrinsic token stripped
+    feat2: torch.Tensor
+    all_feat1: List[torch.Tensor]  # enc_depth x [B, L, C_enc]
+    all_feat2: List[torch.Tensor]
+    dec1: List[torch.Tensor]  # dec_depth+1 x [B, L, .] ([0] = encoder feat)
+    dec2: List[torch.Tensor]
+    shape: Tuple[int, int]
+
+
+class AsymmetricCroCo(nn.Module):
+    def __init__(self, cfg: CrocoCfg):
+        super().__init__()
+        self.cfg = cfg
+        c = cfg
+        self.patch_embed = PatchEmbed(c.patch_size, c.enc_embed_dim)
+        self.intrinsic_encoder = nn.Linear(9, c.enc_embed_dim)
+        self.enc_blocks = nn.ModuleList(
+            [Block(c.enc_embed_dim, c.enc_num_heads, rope_base=c.rope_base) for _ in range(c.enc_depth)]
+        )
+        self.enc_norm = LayerNorm(c.enc_embed_dim)
+        self.decoder_embed = nn.Linear(c.enc_embed_dim, c.dec_embed_dim)
+        self.dec_blocks = nn.ModuleList(
+            [DecoderBlock(c.dec_embed_dim, c.dec_num_heads, rope_base=c.rope_base) for _ in range(c.dec_depth)]
+        )
+        self.dec_blocks2 = nn.ModuleList(
+            [DecoderBlock(c.dec_embed_dim, c.dec_num_heads, rope_base=c.rope_base) for _ in range(c.dec_depth)]
+        )
+        self.dec_norm = LayerNorm(c.dec_embed_dim)
+
+    def _encode_flat(self, images_flat: torch.Tensor, intrinsics_flat: torch.Tensor):
+        """N = B*V images -> (normed feat [N, L+1, C], pos [N, L+1, 2],
+        per-block raw outputs enc_depth x [N, L+1, C])."""
+        n, h, _, _ = images_flat.shape
+        x, pos = self.patch_embed(images_flat)
+        intr_tok = self.intrinsic_encoder(intrinsics_flat.reshape(n, 9))
+        x = torch.cat([x, intr_tok[:, None].to(x.dtype)], dim=1)
+        gh = h // self.cfg.patch_size
+        # built on the device: a tensor from a host list, or an assigned
+        # Python number, is copied from the host and syncs the stream
+        add_pos = torch.zeros((n, 1, 2), dtype=pos.dtype, device=pos.device)
+        add_pos[..., 0].fill_(gh)
+        pos = torch.cat([pos, add_pos], dim=1)
+        all_feat = []
+        for blk in self.enc_blocks:
+            x = blk(x, pos)
+            all_feat.append(x)
+        return self.enc_norm(x), pos, all_feat
+
+    def forward(self, images: torch.Tensor, intrinsics: torch.Tensor) -> BackboneOutput:
+        """images [B, 2, H, W, 3]; intrinsics [B, 2, 3, 3] (normalised)."""
+        b, v, h, w, _ = images.shape
+        if v != 2:
+            raise ValueError("AsymmetricCroCo is the two-view backbone")
+        feat, pos, all_feat = self._encode_flat(
+            images.reshape(b * v, h, w, 3), intrinsics.reshape(b * v, 3, 3)
+        )
+        lp1 = feat.shape[1]
+        feat = feat.view(b, v, lp1, -1)
+        pos = pos.reshape(b, v, lp1, 2)
+        feat1, feat2 = feat[:, 0], feat[:, 1]
+        pos1, pos2 = pos[:, 0].contiguous(), pos[:, 1].contiguous()
+
+        f1 = self.decoder_embed(feat1)
+        f2 = self.decoder_embed(feat2)
+        dec1, dec2 = [feat1], [feat2]
+        for blk1, blk2 in zip(self.dec_blocks, self.dec_blocks2):
+            # both blocks read the pre-layer tokens of the other view
+            f1, f2 = blk1(f1, f2, pos1, pos2), blk2(f2, f1, pos2, pos1)
+            dec1.append(f1)
+            dec2.append(f2)
+        dec1[-1] = self.dec_norm(dec1[-1])
+        dec2[-1] = self.dec_norm(dec2[-1])
+
+        strip = lambda t: t[:, :-1]
+        all1 = [t.view(b, v, lp1, -1)[:, 0, :-1] for t in all_feat]
+        all2 = [t.view(b, v, lp1, -1)[:, 1, :-1] for t in all_feat]
+        return BackboneOutput(
+            feat1=strip(feat1),
+            feat2=strip(feat2),
+            all_feat1=all1,
+            all_feat2=all2,
+            dec1=[strip(t) for t in dec1],
+            dec2=[strip(t) for t in dec2],
+            shape=(h, w),
+        )

@@ -1,0 +1,177 @@
+"""SIU3RModel for two views, counterpart of ``siu3r_tpu/models/model.py``.
+
+One forward: CroCo backbone -> ViT-Adapter (both views batched) -> DPT pts3d
+and Gaussian-parameter heads -> Gaussian adapter; video Mask2Former -> dense
+panoptic post-process, whose labels (and, on request, per-query class
+confidences) are lifted onto the Gaussians.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from siu3r_tpu_torch.config import ModelCfg
+from siu3r_tpu_torch.device import resolve_device
+from siu3r_tpu_torch.gaussians import Gaussians
+from siu3r_tpu_torch.models.adapter import CroCoViTAdapter
+from siu3r_tpu_torch.models.backbone import AsymmetricCroCo
+from siu3r_tpu_torch.models.gaussian_adapter import adapt_gaussians
+from siu3r_tpu_torch.models.heads.dpt import DPTHead, dpt_hooks, postprocess_pts3d
+from siu3r_tpu_torch.models.mask2former.model import SegOutput, VideoMask2Former
+from siu3r_tpu_torch.models.mask2former.postprocess import (
+    panoptic_segmentation,
+    qc_logits_per_pixel,
+)
+
+
+@dataclasses.dataclass
+class ModelOutput:
+    gaussians: Gaussians  # flattened [B, V*H*W, ...] with labels attached
+    seg: SegOutput
+    post: Dict[str, torch.Tensor]  # dense panoptic post-process outputs
+    pts3d: torch.Tensor  # [B, V, H, W, 3]
+
+
+class SIU3RModel(nn.Module):
+    """The two-view model on ``device`` (``cuda`` unless the caller names the
+    CPU; raises without a GPU) with a seeded random init.
+
+    The modules are built without storage and materialised on the device, so
+    the init runs there, drawn from a ``torch.Generator`` on that device: the
+    same seed gives the same weights on the same kind of device."""
+
+    def __init__(self, cfg: ModelCfg, device: str | torch.device = "cuda", seed: int = 0):
+        super().__init__()
+        if cfg.num_views != 2:
+            raise NotImplementedError("siu3r_tpu_torch runs the two-view model only")
+        if cfg.dtype != "float32":
+            raise NotImplementedError("siu3r_tpu_torch computes in float32 only")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        with torch.device("meta"):
+            self._build_modules(cfg)
+        self.to_empty(device=dev)
+        init_weights(self, torch.Generator(device=dev).manual_seed(seed))
+
+    def _build_modules(self, cfg: ModelCfg) -> None:
+        c = cfg.croco
+        self.backbone = AsymmetricCroCo(c)
+        d = c.enc_depth
+        self.adapter = CroCoViTAdapter(
+            embed_dim=c.enc_embed_dim,
+            patch_size=c.patch_size,
+            interaction_indexes=tuple(d * k // 4 - 1 for k in (1, 2, 3, 4)),
+        )
+        self.mask2former = VideoMask2Former(cfg.mask2former, in_channels=c.enc_embed_dim)
+        tok = (c.enc_embed_dim,) + (c.dec_embed_dim,) * 3
+        raw = cfg.gaussian_head.raw_dim
+        self.downstream_head1 = DPTHead(3, tok, head_type="regression", patch_size=c.patch_size)
+        self.downstream_head2 = DPTHead(3, tok, head_type="regression", patch_size=c.patch_size)
+        self.gaussian_param_head1 = DPTHead(raw, tok, head_type="gs_params", patch_size=c.patch_size)
+        self.gaussian_param_head2 = DPTHead(raw, tok, head_type="gs_params", patch_size=c.patch_size)
+
+    def _gaussians_for_views(
+        self, dec_per_view: List[List[torch.Tensor]], images: torch.Tensor, image_size: Tuple[int, int]
+    ) -> Tuple[Gaussians, torch.Tensor]:
+        h, w = image_size
+        b, v = images.shape[:2]
+        hooks = dpt_hooks(self.cfg.croco.dec_depth)
+        pts_list, raw_list = [], []
+        for vi, dec in enumerate(dec_per_view):
+            center_head = self.downstream_head1 if vi == 0 else self.downstream_head2
+            param_head = self.gaussian_param_head1 if vi == 0 else self.gaussian_param_head2
+            tokens = [dec[i] for i in hooks]
+            pts_list.append(postprocess_pts3d(center_head(tokens, None, image_size)))
+            raw_list.append(param_head(tokens, images[:, vi], image_size))
+        pts3d = torch.stack(pts_list, dim=1)  # [B, V, H, W, 3]
+        raw = torch.stack(raw_list, dim=1).reshape(b, v, h * w, -1)
+        gaussians = adapt_gaussians(pts3d.reshape(b, v, h * w, 3), raw, self.cfg.gaussian_head.sh_degree)
+        return gaussians, pts3d
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        intrinsics: torch.Tensor,
+        enable_query_class_logit_lift: bool = False,
+    ) -> ModelOutput:
+        """images [B, 2, H, W, 3] in [0, 1]; intrinsics [B, 2, 3, 3] normalised."""
+        b, v, h, w, _ = images.shape
+        out = self.backbone(images, intrinsics)
+        all_feat = [torch.cat([f1, f2], dim=0) for f1, f2 in zip(out.all_feat1, out.all_feat2)]
+        imgs_flat = torch.cat([images[:, 0], images[:, 1]], dim=0)
+
+        feats = self.adapter(imgs_flat, all_feat)
+        multi_scale_feat = [torch.stack([f[:b], f[b:]], dim=1) for f in feats]
+
+        gaussians, pts3d = self._gaussians_for_views([out.dec1, out.dec2], images, (h, w))
+        seg = self.mask2former(multi_scale_feat)
+
+        m2f = self.cfg.mask2former
+        post = panoptic_segmentation(
+            seg.class_queries_logits,
+            seg.masks_queries_logits,
+            target_size=(h, w),
+            label_ids_to_fuse=tuple(m2f.label_ids_to_fuse),
+            num_labels=m2f.num_labels,
+            max_lift_queries=m2f.max_lift_queries,
+            threshold=m2f.seg_threshold,
+        )
+
+        flat = gaussians.flatten_views()
+        semantic = post["semantic"].reshape(b, v * h * w)
+        # Gaussian labels use 0 for background even where the seg map holds
+        # the -1 empty-image fill
+        instance = post["segmentation"].clamp(min=0).reshape(b, v * h * w)
+        flat = flat.replace(semantic_labels=semantic, instance_labels=instance)
+        if enable_query_class_logit_lift:
+            flat = flat.replace(
+                seg_query_class_logits=qc_logits_per_pixel(post),
+                seg_query_scores=post["query_scores"],
+                seg_query_valid=post["qc_valid"],
+            )
+        return ModelOutput(gaussians=flat, seg=seg, post=post, pts3d=pts3d)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init of every parameter and buffer, in module order:
+    Linear/Conv/ConvTranspose weights and biases and packed attention
+    projections uniform in +-1/sqrt(fan_in) (torch's default bound), norms at
+    scale 1 / shift 0, embeddings and level embeddings N(0, 1), BatchNorm at
+    running mean 0 / var 1."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                w = mod.weight
+                receptive = w[0][0].numel() if w.dim() > 2 else 1
+                # ConvTranspose2d keeps its input channels first
+                in_ch = w.shape[0] if isinstance(mod, nn.ConvTranspose2d) else w.shape[1]
+                bound = (in_ch * receptive) ** -0.5
+                nn.init.uniform_(w, -bound, bound, generator=generator)
+                if mod.bias is not None:
+                    nn.init.uniform_(mod.bias, -bound, bound, generator=generator)
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)):
+                nn.init.ones_(mod.weight)
+                nn.init.zeros_(mod.bias)
+                if isinstance(mod, nn.BatchNorm2d):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+                    mod.num_batches_tracked.zero_()
+            elif isinstance(mod, nn.Embedding):
+                nn.init.normal_(mod.weight, generator=generator)
+            for pname, p in mod.named_parameters(recurse=False):
+                if pname == "level_embed":
+                    nn.init.normal_(p, generator=generator)
+                elif pname == "in_proj_weight":
+                    bound = p.shape[1] ** -0.5
+                    nn.init.uniform_(p, -bound, bound, generator=generator)
+                    nn.init.uniform_(mod.in_proj_bias, -bound, bound, generator=generator)
+    return model
+
+
+def build_model(cfg: ModelCfg, device: str | torch.device = "cuda", seed: int = 0) -> SIU3RModel:
+    """SIU3RModel in eval mode on ``device`` with a seeded random init."""
+    return SIU3RModel(cfg, device=device, seed=seed).eval()
