@@ -7,16 +7,29 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: nvcc builds the CUDA kernels from siu3r_tpu_torch/csrc;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes and at edge cases, with times, bounds and, for attention,
-     one PyTorch call computing the same function as a yardstick;
+     one PyTorch call computing the same function as a yardstick; the
+     binning and raster kernels on a synthetic scene at the eval shapes
+     (6 views x 32 tiles, K = 4096, C = 3 and 16) and at edge cases;
   4. slice check: a small config run on the GPU (kernels) against the same
-     weights on the CPU (plain versions);
+     weights on the CPU (plain versions): the forward, then the eval step's
+     render against the CPU render of the step's own Gaussians, with target
+     cameras framing the scene;
   5. forward: the full-width ViT-L two-view forward at 256x256 from a seeded
      random init, with the launch counts of one forward checked against the
      model's attention and deformable-attention call sites and no host sync
      inside it, then timed;
-  6. CLI: two synthetic images through ``python -m siu3r_tpu_torch.cli.inference``
+  6. eval step: ``Pipeline.eval_step`` at full width (the forward, then RGB,
+     depth and query-class rendering of 6 target views), with its launch
+     counts checked, no host sync inside it, then timed; the binning and
+     raster kernels held against their plain versions on the step's own
+     inputs, with times, bounds and tile occupancy;
+  7. CLI: two synthetic images through ``python -m siu3r_tpu_torch.cli.inference``
      (its own process, under its own settings) to ``output.ply``, read back and
-     checked against the reference schema and this process's forward.
+     checked against the reference schema and this process's forward; then
+     ``python -m siu3r_tpu_torch.cli.viewer --orbit`` on a room-scale copy of
+     that file (its own process), its frames held against this process's
+     render of the same cameras, and the viewer's HTTP server on loopback, in
+     every mode, with no blank RGB or depth frame.
 It then prints the kernels' JSON line and, last, the device line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -38,13 +51,29 @@ import torch
 import torch.nn.functional as F
 
 import siu3r_tpu_torch  # noqa: F401  (outside a checkout of the repo, fail before printing anything)
+from siu3r_tpu_torch.render.tiles import SLOTS_X, SLOTS_Y
+
+IMAGE = (256, 256)
+SLOTS = (SLOTS_Y, SLOTS_X)  # the rasterizer's slot grid; 256x256 has 16 x 2 tiles
 
 # H100 SXM peaks (NVIDIA data sheet) at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# int32 ALU: 64 lanes per SM, half the fp32 lanes, and one operation a lane
+# and cycle where the fp32 peak counts an FMA as two (Hopper architecture
+# white paper): 132 SMs x 64 x 1.98 GHz
+PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
 ATTN_ATOL = 2e-5
 MSDA_ATOL = 1e-5
+# raster: the kernel's whole-tile exit leaves out contributions below
+# transmittance 1e-4, and it sums in another order; scaled by the largest
+# colour (at least 1) and, for depth, the largest depth of the inputs
+RASTER_ATOL = 2e-4
+RENDER_RTOL, RENDER_ATOL, RENDER_DEPTH_ATOL = 1e-3, 1e-3, 1e-2
 SLICE_RTOL, SLICE_ATOL = 1e-3, 1e-4
+# a render is compared only where its target views see the scene: mean alpha
+# at least this
+MIN_COVERAGE = 0.1
 LABEL_AGREEMENT = 0.999
 
 
@@ -52,13 +81,16 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int) -> tuple[float, float]:
-    """(device ms, elapsed ms) per call over ``iters`` back-to-back calls.
+def time_ms(fn, iters: int, part: str | None = None) -> tuple[float, float, float | None]:
+    """(device ms, elapsed ms, part ms) per call over ``iters`` back-to-back
+    calls.
 
     Device ms is the card's busy time summed over every kernel, copy and
-    memset the calls ran, from the profiler's CUDA trace; elapsed ms comes
-    from CUDA events around the loop and includes the gaps where the card
-    waits for the host to launch (for a small kernel, the wrapper's cost)."""
+    memset the calls ran, from the profiler's CUDA trace; part ms is the
+    share of the device entries whose name contains ``part`` (None without
+    ``part``); elapsed ms comes from CUDA events around the loop and includes
+    the gaps where the card waits for the host to launch (for a small
+    kernel, the wrapper's cost)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -78,15 +110,18 @@ def time_ms(fn, iters: int) -> tuple[float, float]:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        device_us = sum(e.self_device_time_total for e in prof.key_averages())
+        rows = prof.key_averages()
+        device_us = sum(e.self_device_time_total for e in rows)
         if device_us > 0:
-            return device_us / 1e3 / iters, elapsed
+            part_ms = (None if part is None else
+                       sum(e.self_device_time_total for e in rows if part in e.key) / 1e3 / iters)
+            return device_us / 1e3 / iters, elapsed, part_ms
     raise RuntimeError("the profiler recorded no device time")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak_ops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -179,13 +214,13 @@ def check_attention(name, case, iters, gen, cross=False):
     err = (out - ref).abs().max().item()
     if not math.isfinite(err) or err > ATTN_ATOL:
         raise AssertionError(f"attention {name} {case}: max_abs_err {err} > {ATTN_ATOL}")
-    ms, elapsed = time_ms(kern, iters)
-    plain_ms, _ = time_ms(plain, max(3, iters // 4))
+    ms, elapsed, _ = time_ms(kern, iters)
+    plain_ms = time_ms(plain, max(3, iters // 4))[0]
     lib_ms = None
     if kv_mask is None:
         qr = rope2d_from_cos_sin(q, *qrope) if qrope is not None else q
         kr = rope2d_from_cos_sin(k, *krope) if krope is not None else k
-        lib_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters)[0]
     nbytes, flops = _attn_cost(case)
     b_ms, b_by = bound(nbytes, flops)
     log("kernel", f"{name} {case[:5]} rope={case[5]} mask={case[6]}: max_abs_err {err:.3g} "
@@ -242,8 +277,8 @@ def check_msda(name, case, iters, gen):
     err = (out - ref).abs().max().item()
     if not math.isfinite(err) or err > MSDA_ATOL:
         raise AssertionError(f"msda {name}: max_abs_err {err} > {MSDA_ATOL}")
-    ms, elapsed = time_ms(kern, iters)
-    plain_ms, _ = time_ms(plain, max(3, iters // 4))
+    ms, elapsed, _ = time_ms(kern, iters)
+    plain_ms = time_ms(plain, max(3, iters // 4))[0]
     nbytes, flops = _msda_cost(case, loc)
     b_ms, b_by = bound(nbytes, flops)
     log("kernel", f"msda {name} B={case[0]} Lq={case[1]} H={case[2]} D={case[3]} P={case[4]} "
@@ -312,6 +347,208 @@ def phase_kernels() -> dict:
     return per_kernel
 
 
+# ---------------------------------------------------------------- phase 3: render kernels
+
+
+def _same_table(got, want) -> bool:
+    """Binning results equal: the counts, and the table up to each count."""
+    (tg, cg), (tw, cw) = got, want
+    if not torch.equal(cg, cw):
+        return False
+    live = torch.arange(tg.shape[-1], device=tg.device) < cw[..., None]
+    return torch.equal(torch.where(live, tg, -1), torch.where(live, tw, -1))
+
+
+def _bin_cost(proj, table, counts) -> tuple[float, float]:
+    """Bytes: mean2d, depth and radius in (16 bytes a gaussian and view); the
+    table and counts out. Operations: four int32 compares per (gaussian,
+    tile) that the tile's list depends on, counted at the int32 rate: every
+    gaussian for a tile with fewer than K members, and those up to its K-th
+    member in depth order for a tile at K."""
+    n, g = proj.depth.shape
+    t, k = table.shape[-2:]
+    order = torch.sort(proj.depth, dim=-1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(1, order, torch.arange(g, device=order.device).expand(n, -1))
+    kth = rank.gather(1, table[..., k - 1].reshape(n, t).long()) + 1
+    needed = torch.where(counts.reshape(n, t) >= k, kth, torch.full_like(kth, g))
+    return 16.0 * n * g + 4.0 * n * t * (k + 1), 4.0 * float(needed.sum().item())
+
+
+def check_bin(name, proj, k, iters) -> dict:
+    from siu3r_tpu_torch.kernels.binning import _flat, bin_gaussians, bin_gaussians_plain
+
+    proj = _flat(proj)  # views flattened: [N, G]
+    kern = lambda: bin_gaussians(proj, IMAGE, k, *SLOTS)
+    plain = lambda: bin_gaussians_plain(proj, IMAGE, k, *SLOTS)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if not _same_table(got, want):
+        raise AssertionError(f"bin {name}: table or counts differ from the plain version")
+    counts = got[1].float()
+    res = dict(err=0.0, mean_count=counts.mean().item(), at_k=(got[1] == k).float().mean().item())
+    if iters:
+        nbytes, ops = _bin_cost(proj, *got)
+        # the wrapper's device time (the depth sort and range gather in
+        # torch, then the compaction kernel) and the compaction kernel's own
+        res["ms"], res["elapsed"], res["kernel_ms"] = time_ms(kern, iters, part="bin_kernel")
+        if not res["kernel_ms"] > 0:
+            raise RuntimeError("the profiler's trace holds no bin_kernel entry")
+        res["plain_ms"] = time_ms(plain, max(3, iters // 4))[0]
+        res["bound_ms"], res["bound_by"] = bound(nbytes, ops, PEAK_INT32_OPS)
+    log("kernel", f"bin {name} views={proj.depth.shape[0]} G={proj.depth.shape[1]} K={k}: exact, "
+                  f"mean count {res['mean_count']:.1f}, share at K {res['at_k']:.3f}"
+                  + (f", ms {res['ms']:.5f} (bin_kernel {res['kernel_ms']:.5f}, elapsed {res['elapsed']:.5f}) "
+                     f"plain_ms {res['plain_ms']:.5f} bound_ms {res['bound_ms']:.5f} ({res['bound_by']})"
+                     if iters else ""))
+    return res
+
+
+def _raster_work(table, counts, params, swept) -> tuple[float, float]:
+    """(pairs, kept): the (gaussian, pixel) pairs the kernel composites before
+    each tile's exit, and those whose alpha passes 1/255."""
+    from siu3r_tpu_torch.render.tiles import _ALPHA_MAX, _ALPHA_MIN, _CHUNK, TILE_H, TILE_W, tile_grid
+
+    n, t, k = table.shape
+    _, n_tx = tile_grid(IMAGE)
+    done = torch.minimum(counts, swept * _CHUNK).reshape(-1, 1, 1)  # [NT, 1, 1]
+    gp = params.gather(1, table.reshape(n, -1, 1).long().expand(-1, -1, 8)).reshape(n * t, k, 8)
+    tiles = torch.arange(t, device=table.device).repeat(n)
+    p = torch.arange(TILE_H * TILE_W, device=table.device)
+    px = ((tiles % n_tx) * TILE_W)[:, None, None] + (p % TILE_W)
+    py = ((tiles // n_tx) * TILE_H)[:, None, None] + (p // TILE_W)
+    kept = 0
+    for base in range(0, k, _CHUNK):
+        prm = gp[:, base:base + _CHUNK]
+        dx, dy = px - prm[..., 0:1], py - prm[..., 1:2]
+        power = -0.5 * (prm[..., 2:3] * dx * dx + prm[..., 4:5] * dy * dy) - prm[..., 3:4] * dx * dy
+        alpha = torch.clamp(prm[..., 5:6] * torch.exp(power), max=_ALPHA_MAX)
+        idx = base + torch.arange(_CHUNK, device=table.device)[None, :, None]
+        kept += int(((alpha >= _ALPHA_MIN) & (idx < done)).sum().item())
+    return float(done.sum().item()) * TILE_H * TILE_W, float(kept)
+
+
+def _raster_cost(table, counts, params, colors, swept) -> tuple[float, float]:
+    """Bytes: table, counts, params and colours in, once each; colour, depth,
+    alpha and the swept counts out. Operations (fp32): 15 for the alpha of
+    each pair composited before the exit (the exp counted as one), and 5 + 2C
+    for each pair whose alpha is kept."""
+    n, t, k = table.shape
+    c = colors.shape[-1]
+    pairs, kept = _raster_work(table, counts, params, swept)
+    nbytes = 4.0 * (table.numel() + counts.numel() + params.numel() + colors.numel()
+                    + n * IMAGE[0] * IMAGE[1] * (c + 2) + n * t)
+    return nbytes, 15.0 * pairs + (5.0 + 2.0 * c) * kept
+
+
+def check_raster(name, table, counts, params, colors, iters) -> dict:
+    from siu3r_tpu_torch.kernels.raster import _flatten, raster, raster_plain
+
+    _, table, counts, params, colors = _flatten(table, counts, params, colors)  # views flattened
+    kern = lambda: raster(table, counts, params, colors, IMAGE)
+    plain = lambda: raster_plain(table, counts, params, colors, IMAGE)
+    (c, d, a, s), (rc, rd, ra, rs) = kern(), plain()
+    torch.cuda.synchronize()
+    err = max((c - rc).abs().max().item(), (a - ra).abs().max().item())
+    depth_err = (d - rd).abs().max().item()
+    c_scale = max(1.0, colors.abs().max().item())
+    d_scale = max(1.0, params[..., 6].abs().max().item())
+    finite = all(bool(torch.isfinite(x).all()) for x in (c, d, a))
+    if not finite or err > RASTER_ATOL * c_scale or depth_err > RASTER_ATOL * d_scale:
+        raise AssertionError(f"raster {name}: max_abs_err {err} (depth {depth_err}) beyond "
+                             f"{RASTER_ATOL} x ({c_scale}, {d_scale})")
+    live = counts > 0
+    res = dict(err=err, depth_err=depth_err, swept_differ=int((s != rs).sum().item()),
+               mean_swept=s[live].float().mean().item() if bool(live.any()) else 0.0,
+               full_sweeps=(s * 128 >= counts)[live].float().mean().item() if bool(live.any()) else 1.0)
+    if iters:
+        nbytes, ops = _raster_cost(table, counts, params, colors, s)
+        res["ms"], res["elapsed"], _ = time_ms(kern, iters)
+        res["plain_ms"] = time_ms(plain, max(3, iters // 4))[0]
+        res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+    log("kernel", f"raster {name} views={table.shape[0]} K={table.shape[-1]} C={colors.shape[-1]}: max_abs_err "
+                  f"{err:.3g} (depth {depth_err:.3g}), chunks swept per live tile {res['mean_swept']:.2f}, "
+                  f"share of live tiles swept to their count {res['full_sweeps']:.3f}, tiles whose sweep "
+                  f"differs from the plain version's {res['swept_differ']}"
+                  + (f", ms {res['ms']:.5f} (elapsed {res['elapsed']:.5f}) plain_ms {res['plain_ms']:.5f} "
+                     f"bound_ms {res['bound_ms']:.5f} ({res['bound_by']})" if iters else ""))
+    return res
+
+
+def _synthetic_scene(gen, g: int, n_views: int, opaque: bool = False):
+    """A scene at the eval shapes: g gaussians 2 to 6 units in front of
+    n_views cameras near the identity (focal 1.2 x width). ``opaque``: large,
+    opaque splats, so tiles saturate after a few chunks."""
+    from siu3r_tpu_torch.gaussians import build_covariance
+    from siu3r_tpu_torch.render.projection import project_gaussians
+    from siu3r_tpu_torch.render.rasterizer import pack_params
+
+    dev = "cuda"
+    means = torch.cat([torch.rand(g, 2, device=dev, generator=gen) * 2.4 - 1.2,
+                       torch.rand(g, 1, device=dev, generator=gen) * 4 + 2], dim=-1)
+    lo, span = (0.05, 0.1) if opaque else (0.005, 0.025)
+    scales = torch.rand(g, 3, device=dev, generator=gen) * span + lo
+    quats = torch.randn(g, 4, device=dev, generator=gen)
+    covs = build_covariance(scales, quats / quats.norm(dim=-1, keepdim=True))
+    opac = (torch.full((g,), 0.95, device=dev) if opaque
+            else torch.rand(g, device=dev, generator=gen) * 0.9 + 0.05)
+    vm = torch.eye(4, device=dev).repeat(n_views, 1, 1)
+    vm[:, :3, 3] = (torch.rand(n_views, 3, device=dev, generator=gen) - 0.5) * 0.4
+    h, w = IMAGE
+    f = 1.2 * w
+    intr = torch.tensor([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]], device=dev).expand(n_views, 3, 3)
+    proj = project_gaussians(means, covs, vm, intr, IMAGE, 0.2, 1000.0)
+    return proj, pack_params(proj, opac)
+
+
+def phase_render_kernels() -> dict:
+    """Binning exact and raster within RASTER_ATOL against their plain
+    versions: the eval shapes, then the edge cases."""
+    from siu3r_tpu_torch.kernels.binning import bin_gaussians
+    from siu3r_tpu_torch.render.projection import ProjectedGaussians
+    from siu3r_tpu_torch.render.rasterizer import pack_params
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    g, views, k = 2 * 256 * 256, 6, 4096
+    proj, params = _synthetic_scene(gen, g, views)
+    worst = dict(bin=0.0, raster=0.0)
+    check_bin("eval_shapes", proj, k, 20)
+    table, counts = bin_gaussians(proj, IMAGE, k, *SLOTS)
+    rgb = torch.rand(views, g, 3, device="cuda", generator=gen)  # per view, as SH colours are
+    qc = torch.rand(1, g, 16, device="cuda", generator=gen)  # shared by the views, as the qc channels are
+    for name, colors in (("eval_rgb_C3", rgb), ("eval_qc_C16", qc)):
+        worst["raster"] = max(worst["raster"], check_raster(name, table, counts, params, colors, 20)["err"])
+    for c in (1, 64):
+        cols = torch.rand(1, g, c, device="cuda", generator=gen)
+        worst["raster"] = max(worst["raster"], check_raster(f"C{c}", table, counts, params, cols, 0)["err"])
+
+    dead = proj._replace(radius=torch.zeros_like(proj.radius))
+    check_bin("all_dead", dead, k, 0)
+    check_bin("truncated_K128", proj, 128, 0)
+    tied = proj._replace(depth=torch.round(proj.depth * 2) / 2)
+    check_bin("tied_depths", tied, k, 0)
+    tt, tc = bin_gaussians(tied, IMAGE, k, *SLOTS)
+    worst["raster"] = max(worst["raster"], check_raster("tied_depths", tt, tc, params, rgb, 0)["err"])
+    one = ProjectedGaussians(*(x[:, :1].contiguous() for x in proj))
+    one = one._replace(mean2d=torch.full_like(one.mean2d, 100.0), radius=torch.full_like(one.radius, 9.0))
+    check_bin("one_gaussian", one, k, 0)
+    ot, oc = bin_gaussians(one, IMAGE, k, *SLOTS)
+    oparams = pack_params(one, torch.full((1,), 0.9, device="cuda"))
+    worst["raster"] = max(worst["raster"], check_raster(
+        "one_gaussian", ot, oc, oparams, rgb[:, :1].contiguous(), 0)["err"])
+    dt, dc = bin_gaussians(dead, IMAGE, k, *SLOTS)
+    res = check_raster("all_dead", dt, dc, params, rgb, 0)
+    worst["raster"] = max(worst["raster"], res["err"])
+    sproj, sparams = _synthetic_scene(gen, g, views, opaque=True)
+    st, sc = bin_gaussians(sproj, IMAGE, k, *SLOTS)
+    res = check_raster("saturated", st, sc, sparams, rgb, 0)
+    worst["raster"] = max(worst["raster"], res["err"])
+    if res["full_sweeps"] >= 1.0:
+        raise AssertionError("raster saturated: no tile stopped before the end of its list")
+    log("kernels", f"binning equal to its plain version, raster within {RASTER_ATOL} of its plain version "
+                   "on the eval shapes and every edge case")
+    return worst
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -343,12 +580,53 @@ def _floats(out) -> dict:
     return res
 
 
-def phase_slice_check() -> None:
-    from siu3r_tpu_torch.models.model import build_model
+def _target_views(means: torch.Tensor, n_views: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """n_views target cameras framing the first context view's Gaussians:
+    camera-to-world poses [1, n_views, 4, 4] looking down +z from 0.15 units
+    behind the nearest of them (clear of the renderer's 0.1 near plane), on a
+    small circle about their median, and normalised intrinsics
+    [1, n_views, 3, 3] whose field of view holds 98% of them. (Seeded random
+    weights give each context view a compact blob about 0.01 units across,
+    next to the first context camera's origin; a camera at the context
+    views' field of view sees a few percent of its pixels covered.)
+    Set-up: syncs with the host."""
+    m = means.reshape(-1, 3).float()
+    m = m[: m.shape[0] // 2]  # the first context view's pixels
+    center = m.median(dim=0).values
+    rel = m - center
+    dist = max(float(-rel[:, 2].quantile(0.02)), 0.0) + 0.15
+    tan_half = float((rel[:, :2].abs().amax(dim=-1) / (rel[:, 2] + dist).clamp(min=1e-3)).quantile(0.98))
+    angles = torch.arange(n_views, device=m.device) * (2 * math.pi / n_views)
+    offsets = torch.stack([torch.cos(angles), torch.sin(angles), torch.zeros_like(angles)], dim=-1)
+    ext = torch.eye(4, device=m.device).repeat(1, n_views, 1, 1)
+    ext[0, :, :3, 3] = center + 0.1 * dist * tan_half * offsets
+    ext[0, :, 2, 3] -= dist
+    k = torch.eye(3, device=m.device)
+    k[0, 0] = k[1, 1] = 0.5 / tan_half
+    k[:2, 2] = 0.5
+    return ext, k.expand(1, n_views, 3, 3).contiguous()
 
-    cfg = _small_cfg()
-    gpu = build_model(cfg, device="cuda", seed=7)
-    cpu = build_model(cfg, device="cpu", seed=0)
+
+def _eval_batch(images, intr, targets) -> dict:
+    ext, target_intr = targets
+    return {
+        "context_views_images": images,
+        "context_views_intrinsics": intr,
+        "target_views_extrinsics": ext,
+        "target_views_intrinsics": target_intr,
+    }
+
+
+def phase_slice_check() -> None:
+    from siu3r_tpu_torch.config import PipelineCfg, RootCfg
+    from siu3r_tpu_torch.models.model import SIU3RModel
+    from siu3r_tpu_torch.pipeline import Pipeline
+    from siu3r_tpu_torch.renderer import render_color_and_qc
+
+    root = RootCfg(pipeline=PipelineCfg(model=_small_cfg()))
+    gpu_pipe = Pipeline(root, device="cuda", seed=7)
+    gpu = gpu_pipe.model
+    cpu = SIU3RModel(root.pipeline.model, device="cpu", seed=0).eval()
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     rng = np.random.RandomState(0)
     images = torch.from_numpy(rng.rand(1, 2, 64, 64, 3).astype(np.float32))
@@ -375,6 +653,37 @@ def phase_slice_check() -> None:
         raise AssertionError(f"slice check: labels agree on {agree:.5f} < {LABEL_AGREEMENT}")
     log("slice", f"small config on cuda (kernels) vs cpu (plain): floats within rtol {SLICE_RTOL} "
                  f"atol {SLICE_ATOL} (worst excess {worst:.3g}), labels agree {agree:.5f}")
+
+    # the eval step: the same forward, then the render of 4 target views,
+    # held against the CPU plain render of the step's own Gaussians. (Not
+    # against the CPU forward's Gaussians: the 1/255 alpha cut is a step, and
+    # across a covered view the forward's rounding moves some pairs over it,
+    # each moving a pixel by up to T/255.)
+    batch = _eval_batch(images, intr, _target_views(oc.gaussians.means, 4))
+    out, rg, qg = gpu_pipe.eval_step({k: v.cuda() for k, v in batch.items()})
+    g = out.gaussians
+    s = out.post["qc_mask_probs"].shape[1]
+    with torch.inference_mode():
+        rc, qc = render_color_and_qc(
+            g.replace(**{f: getattr(g, f).cpu() for f in ("means", "covariances", "harmonics", "opacities")}),
+            out.post["qc_class_probs"].cpu(), out.post["qc_mask_probs"].reshape(1, s, -1).transpose(1, 2).cpu(),
+            batch["target_views_extrinsics"], batch["target_views_intrinsics"], images.shape[2:4],
+        )
+    coverage = rc.alpha.mean().item()
+    if coverage < MIN_COVERAGE:
+        raise AssertionError(f"slice check: the target views see almost nothing (mean alpha {coverage})")
+    excesses = {}
+    for key, a, b, atol in (("color", rg.color, rc.color, RENDER_ATOL), ("alpha", rg.alpha, rc.alpha, RENDER_ATOL),
+                            ("depth", rg.depth, rc.depth, RENDER_DEPTH_ATOL), ("qc", qg, qc, RENDER_ATOL)):
+        a, b = a.cpu().double(), b.double()
+        excesses[key] = ((a - b).abs() - RENDER_RTOL * b.abs()).max().item()
+        if not torch.isfinite(a).all() or excesses[key] > atol:
+            raise AssertionError(f"slice check: eval step {key} differs by {excesses[key]} beyond rtol "
+                                 f"{RENDER_RTOL} atol {atol}")
+    log("slice", f"small config eval step on cuda (kernels) vs the cpu render (plain) of its Gaussians, "
+                 f"4 target views, mean alpha "
+                 f"{coverage:.3f}: within rtol {RENDER_RTOL} atol {RENDER_ATOL} (depth {RENDER_DEPTH_ATOL}), "
+                 f"worst excess {excesses}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -478,6 +787,118 @@ def phase_forward() -> dict:
 
 # ---------------------------------------------------------------- phase 6
 
+N_TARGET = 6  # 2 context + 4 extra target views, as the validation CLI sets
+
+
+def _record_render_calls(run) -> dict:
+    """Run ``run`` once with the rasterizer's binning and raster calls
+    recorded: {"bin": [args], "raster": [args]}."""
+    import siu3r_tpu_torch.render.rasterizer as R
+
+    calls = {"bin": [], "raster": []}
+    orig = R.bin_gaussians, R.raster
+
+    def rec(name, fn):
+        def wrapped(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return wrapped
+
+    R.bin_gaussians, R.raster = rec("bin", orig[0]), rec("raster", orig[1])
+    try:
+        run()
+    finally:
+        R.bin_gaussians, R.raster = orig
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase_eval() -> dict:
+    from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
+    from siu3r_tpu_torch.kernels import _build
+    from siu3r_tpu_torch.pipeline import Pipeline, lift_rendered_qc
+
+    cfg = bind_scannet_classes(RootCfg())
+    pipe = Pipeline(cfg, device="cuda", seed=0)
+    mcfg = cfg.pipeline.model
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.rand(1, 2, 256, 256, 3, device="cuda", generator=gen)
+    k = torch.tensor([[318 / 256, 0, 0.5], [0, 318 / 256, 0.5], [0, 0, 1]], device="cuda")
+    intr = k.expand(1, 2, 3, 3).contiguous()
+    with torch.inference_mode():
+        means = pipe.model(images, intr).gaussians.means
+    batch = _eval_batch(images, intr, _target_views(means, N_TARGET))
+    run = lambda: pipe.eval_step(batch)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside the step raises
+    out, render, qc = run()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    # one binning for the 6 views; one raster launch for the RGB set (C = 3)
+    # and one for the 16 query-class channels
+    expected = {**expected_launches(mcfg), "bin": 1, "raster": 2}
+    if launches != expected:
+        raise AssertionError(f"eval step launches {launches} != expected {expected}")
+    n_slots, n_cls = mcfg.mask2former.max_lift_queries, mcfg.mask2former.num_labels + 1
+    shapes = {"color": (render.color, (1, N_TARGET, 256, 256, 3)), "depth": (render.depth, (1, N_TARGET, 256, 256)),
+              "alpha": (render.alpha, (1, N_TARGET, 256, 256)),
+              "qc": (qc, (1, N_TARGET, n_slots, n_cls, 256, 256))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"eval step {name}: shape {tuple(t.shape)} (expected {shape}) or not finite")
+    coverage = render.alpha.mean().item()
+    if coverage < MIN_COVERAGE:
+        raise AssertionError(f"eval step: the target views see almost nothing (mean alpha {coverage})")
+    sem, ins = lift_rendered_qc(qc, out.gaussians.seg_query_scores, num_queries=mcfg.mask2former.num_queries)
+    if tuple(sem.shape) != (1, N_TARGET, 256, 256) or int(sem.min()) < 0 or int(sem.max()) >= n_cls:
+        raise AssertionError("lifted semantic ids out of shape or range")
+    del out, render, qc, sem, ins
+
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    device_ms, top = _device_breakdown(run, 3)
+    med = statistics.median(times)
+    res = dict(launches=launches, median_s=med, min_s=min(times), max_s=max(times), steps_per_s=1.0 / med,
+               peak_gib=peak / 2**30, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3),
+               top_device_ms=top, mean_alpha=coverage)
+    log("eval", f"Pipeline.eval_step, ViT-L two-view 256x256 B=1 fp32 + {N_TARGET} target views: launches "
+                f"{launches} (expected), no host sync, outputs finite, mean alpha {coverage:.3f}; median of "
+                f"{len(times)} warm steps {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+                f"{max(times) * 1e3:.2f}) = {1.0 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; "
+                f"device busy {device_ms:.2f} ms per step, idle share {res['idle_share']:.3f}")
+    for name, ms in top[:12]:
+        log("eval", f"  device {ms:8.3f} ms  {name[:100]}")
+
+    # the binning and raster kernels on the step's own inputs
+    calls = _record_render_calls(run)
+    if len(calls["bin"]) != 1 or len(calls["raster"]) != 2:
+        raise AssertionError(f"recorded {len(calls['bin'])} binning and {len(calls['raster'])} raster calls")
+    proj, _, kcap, _, _ = calls["bin"][0]
+    res["bin"] = check_bin("eval_step", proj, kcap, 20)
+    res["raster"] = [check_raster(f"eval_step_C{a[3].shape[-1]}", *a[:4], 20) for a in calls["raster"]]
+    occ = res["bin"]
+    log("eval", f"tile occupancy: mean count {occ['mean_count']:.1f} of K={kcap}, share of tiles at K "
+                f"{occ['at_k']:.3f}, chunks swept per live tile {res['raster'][0]['mean_swept']:.2f} "
+                f"of {kcap // 128}, share of live tiles swept to their count {res['raster'][0]['full_sweeps']:.3f}")
+    del pipe, calls, proj
+    torch.cuda.empty_cache()
+    return res
+
+
+
+# ---------------------------------------------------------------- phase 7
+
 
 def _cli_forward(images: np.ndarray):
     """The CLI's forward rebuilt here (same seed, default intrinsics) -> host Gaussians."""
@@ -552,10 +973,119 @@ def phase_cli() -> None:
             raise RuntimeError(f"the CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
         ply = read_ply(out_dir / "output.ply")
         images = np.stack([inference.preprocess_image(p) for p in paths])[None]
-    agree = check_ply(ply, _cli_forward(images))
-    log("cli", f"siu3r_tpu_torch.cli.inference wrote output.ply: {len(ply['x'])} vertices, "
-               f"{len(ply)} properties in the reference schema, equal to the model's outputs "
-               f"(labels agree {agree:.5f})")
+        agree = check_ply(ply, _cli_forward(images))
+        log("cli", f"siu3r_tpu_torch.cli.inference wrote output.ply: {len(ply['x'])} vertices, "
+                   f"{len(ply)} properties in the reference schema, equal to the model's outputs "
+                   f"(labels agree {agree:.5f})")
+        room = Path(tmp) / "room.ply"
+        factor = _room_scale(out_dir / "output.ply", room)
+        log("viewer", f"output.ply scaled by {factor:.3f} to room size: 70% of its Gaussians within 2 units")
+        check_viewer(room, Path(tmp) / "orbit")
+
+
+VIEWER_MODES = ("rgb", "depth", "semantic", "instance")
+
+
+def _room_scale(ply_path: Path, out_path: Path) -> float:
+    """Write a copy of ``ply_path`` scaled about the origin so that 70% of the
+    Gaussians lie within 2 units of their median: the room-scale scenes the
+    viewer's cameras are set for (its near plane is 0.2 units, and seeded
+    random weights put the whole scene within about 0.1 of the origin, where
+    every viewer camera would cull it). Returns the factor."""
+    from siu3r_tpu_torch.io import read_ply
+    from siu3r_tpu_torch.io.ply import _write_binary_ply
+
+    cols = read_ply(ply_path)
+    xyz = np.stack([cols[c] for c in "xyz"], -1)
+    factor = np.float32(2.0 / np.percentile(np.linalg.norm(xyz - np.median(xyz, axis=0), axis=-1), 70))
+    for c in "xyz":
+        cols[c] = cols[c] * factor
+    for i in range(3):
+        cols[f"scale_{i}"] = cols[f"scale_{i}"] + np.log(factor)
+    elements = np.empty(len(xyz), dtype=[(k, v.dtype) for k, v in cols.items()])
+    for k, v in cols.items():
+        elements[k] = v
+    _write_binary_ply(out_path, elements)
+    return float(factor)
+
+
+def _png(data: bytes, what: str) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{what} is not a PNG")
+    img = np.asarray(Image.open(io.BytesIO(data)))
+    if img.shape != (256, 256, 3) or img.dtype != np.uint8:
+        raise AssertionError(f"{what}: image {img.shape} {img.dtype}, expected (256, 256, 3) uint8")
+    return img
+
+
+def check_viewer(ply_path: Path, orbit_dir: Path) -> None:
+    """The viewer CLI's orbit in its own process, then its HTTP server on
+    loopback in this process, every mode, with the launches of those renders."""
+    import threading
+    import urllib.request
+
+    from siu3r_tpu_torch.cli import viewer
+    from siu3r_tpu_torch.kernels import _build
+
+    frames = 8
+    cli = subprocess.run(
+        [sys.executable, "-m", "siu3r_tpu_torch.cli.viewer", "--ply", str(ply_path), "--orbit",
+         "--frames", str(frames), "--output_path", str(orbit_dir)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600,
+    )
+    for line in cli.stdout.splitlines():
+        log("viewer", line)
+    if cli.returncode != 0:
+        raise RuntimeError(f"the viewer CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
+    names = sorted(p.name for p in orbit_dir.iterdir())
+    if names != [f"rgb_{i:03d}.png" for i in range(frames)]:
+        raise AssertionError(f"the orbit wrote {names}")
+    got = np.stack([_png((orbit_dir / n).read_bytes(), n) for n in names]).astype(np.int32)
+    # the same cameras rendered in this process; seeded random weights give
+    # two compact blobs (one per context view), which an orbit around their
+    # median sees from some angles only, so one frame at least must show them
+    scene = viewer.load_gaussian_ply(ply_path)
+    want = viewer.render_views(scene, *viewer.orbit_cameras(scene, frames), IMAGE, device="cuda")
+    same = (np.abs(got - want.astype(np.int32)).max(-1) <= 1).mean()
+    means = got.mean(axis=(1, 2, 3))
+    if same < LABEL_AGREEMENT or means.max() <= 0.0:
+        raise AssertionError(f"orbit frames: {same:.5f} of pixels within 1 level of this process's render, "
+                             f"mean pixel values {means.tolist()}")
+    log("viewer", f"--orbit wrote {frames} 256x256 RGB frames, {same:.5f} of pixels within 1 level of this "
+                  f"process's render of the same cameras, mean pixel values {means.round(2).tolist()}")
+
+    server = viewer.serve(scene, port=0, block=False, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    _build.reset_launch_counts()
+    try:
+        base = f"http://127.0.0.1:{server.server_port}"
+        if b"viewer" not in urllib.request.urlopen(f"{base}/", timeout=60).read():
+            raise AssertionError("the viewer page is missing")
+        served = {}
+        for mode in VIEWER_MODES:
+            t0 = time.perf_counter()
+            data = urllib.request.urlopen(f"{base}/render?yaw=0.4&pitch=0.2&radius=3&mode={mode}",
+                                          timeout=300).read()
+            served[mode] = (float(_png(data, f"/render {mode}").mean()), time.perf_counter() - t0)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    launches = dict(_build.launch_counts)
+    if min(served["rgb"][0], served["depth"][0]) <= 0.0:
+        raise AssertionError(f"a served frame is blank: {served}")
+    # one binning and one raster launch per frame (semantic and instance
+    # composite all 16 x 21 = 336 query-class channels in one launch)
+    expected = {"bin": len(VIEWER_MODES), "raster": len(VIEWER_MODES)}
+    if launches != expected:
+        raise AssertionError(f"viewer launches {launches} != expected {expected}")
+    log("viewer", "HTTP /render on loopback, every mode a 256x256 PNG through the kernels (launches "
+                  f"{launches}): " + ", ".join(f"{m} mean {v:.2f} in {t * 1e3:.1f} ms" for m, (v, t) in served.items()))
 
 
 # ---------------------------------------------------------------- main
@@ -565,6 +1095,8 @@ SOURCES = {
     "flash_attn_rope": ("siu3r_tpu_torch/csrc/flash_attention.cu", "siu3r_tpu/ops/flash_attention.py:67"),
     "flash_attn": ("siu3r_tpu_torch/csrc/flash_attention.cu", "siu3r_tpu/ops/flash_attention.py:33"),
     "msda": ("siu3r_tpu_torch/csrc/msda.cu", "siu3r_tpu/ops/msda_pallas.py:44"),
+    "bin": ("siu3r_tpu_torch/csrc/binning.cu", "siu3r_tpu/render/rasterizer.py:189"),
+    "raster": ("siu3r_tpu_torch/csrc/raster.cu", "siu3r_tpu/render/rasterizer.py:379"),
 }
 
 
@@ -576,8 +1108,10 @@ def main(argv=None) -> None:
     smi = phase_environment()
     phase_build()
     per_kernel = phase_kernels()
+    render_err = phase_render_kernels()
     phase_slice_check()
     fwd = phase_forward()
+    ev = phase_eval()
     phase_cli()
 
     kernels = []
@@ -589,10 +1123,22 @@ def main(argv=None) -> None:
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": acc["bound_by"], "library_ms": acc["library_ms"],
         })
+    # the render kernels: per eval step, on the step's own inputs
+    raster_sum = {key: sum(r[key] for r in ev["raster"]) for key in ("ms", "plain_ms", "bound_ms")}
+    raster_by = max(ev["raster"], key=lambda r: r["bound_ms"])["bound_by"]
+    for name, acc, by in (("bin", ev["bin"], ev["bin"]["bound_by"]), ("raster", raster_sum, raster_by)):
+        source, replaces = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": ev["launches"][name],
+            "max_abs_err": max([render_err[name]] + [r["err"] for r in ev["raster"]] * (name == "raster")),
+            "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
+            "bound_by": by, "library_ms": None,
+        })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
-            {"card": smi, "kernels": kernels, "forward": fwd}, indent=1))
+            {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,13 @@
-"""SIU3R on PyTorch and CUDA: the two-view recon+seg forward of ``siu3r_tpu``
-rebuilt for one NVIDIA H100.
+"""SIU3R on PyTorch and CUDA: the two-view recon+seg forward of ``siu3r_tpu``,
+its validation step (novel-view rendering) and its viewer, rebuilt for one
+NVIDIA H100.
 
 The JAX package ``siu3r_tpu`` is the reference each module here is held
 against; this package imports neither it nor JAX. Attention (with and without
-RoPE2D) and multi-scale deformable attention run through hand-written CUDA
-kernels (``csrc/``, built by ``kernels/_build.py`` at first use); on CPU
-tensors every kernel wrapper runs its plain PyTorch version instead.
+RoPE2D), multi-scale deformable attention, tile binning and tile compositing
+run through hand-written CUDA kernels (``csrc/``, built by
+``kernels/_build.py`` at first use); on CPU tensors every kernel wrapper runs
+its plain PyTorch version instead.
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,10 @@ import torch
 from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
 from siu3r_tpu_torch.device import resolve_device
 from siu3r_tpu_torch.kernels.flash_attention import flash_attn
+from siu3r_tpu_torch.kernels.binning import bin_gaussians
 from siu3r_tpu_torch.kernels.msda import msda
+from siu3r_tpu_torch.kernels.raster import raster
+from siu3r_tpu_torch.render.projection import ProjectedGaussians
 from siu3r_tpu_torch.cli import inference
 from siu3r_tpu_torch.models.model import SIU3RModel, build_model
 
@@ -24,6 +27,9 @@ def test_package_imports_no_jax():
         for p in (ROOT / "siu3r_tpu_torch").rglob("*.py")
     )
     modules = [m.removesuffix(".__init__") for m in modules]
+    for m in ("render.projection", "render.rasterizer", "renderer", "pipeline", "cli.viewer",
+              "kernels.binning", "kernels.raster", "ops.sh"):
+        assert "siu3r_tpu_torch." + m in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -70,3 +76,9 @@ def test_kernel_wrappers_refuse_other_devices():
     loc = torch.empty((1, 2, 1, 1, 1, 2), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         msda(value, [(2, 2)], loc, loc[..., 0])
+    proj = ProjectedGaussians(*(torch.empty(s, device="meta") for s in ((1, 8, 2), (1, 8, 3), (1, 8), (1, 8))))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bin_gaussians(proj, (16, 128), 128, 4, 2)
+    table = torch.empty((1, 1, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        raster(table, table[..., 0], torch.empty((1, 8, 8), device="meta"), torch.empty((8, 3), device="meta"), (16, 128))
