@@ -1,6 +1,6 @@
 """Chip smoke run of siu3r_tpu_torch on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--phases a,b,...]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. environment: versions, the card's name and power limit, TF32 off;
@@ -9,7 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      path's shapes and at edge cases, with times, bounds and, for attention,
      one PyTorch call computing the same function as a yardstick; the
      binning and raster kernels on a synthetic scene at the eval shapes
-     (6 views x 32 tiles, K = 4096, C = 3 and 16) and at edge cases;
+     (6 views x 32 tiles, K = 4096, C = 3 and 16) and at edge cases; the
+     raster backward (kernel 6) against the plain VJP at the training shapes
+     (4 views x 32 tiles, K = 4096, C = 3) and at edge cases; the autograd
+     of the attention, MSDA and raster wrappers against the plain versions';
   4. slice check: a small config run on the GPU (kernels) against the same
      weights on the CPU (plain versions): the forward, then the eval step's
      render against the CPU render of the step's own Gaussians, with target
@@ -23,6 +26,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      counts checked, no host sync inside it, then timed; the binning and
      raster kernels held against their plain versions on the step's own
      inputs, with times, bounds and tile occupancy;
+  8. train step (run before the CLIs): the small config's loss terms and
+     render-loss gradient on the GPU against the CPU, then
+     ``Pipeline.train_step`` at full width (B = 1, 2 + 4 views, 48 objects),
+     its launch counts, finite losses, the frozen encoder unchanged and the
+     trained parts moved, then timed with its host syncs, each timed step's
+     target cameras framing the Gaussians it renders (every step covered and
+     sweeping at least 4 chunks per live tile); the raster kernels held
+     against their plain versions on a step's own inputs;
   7. CLI: two synthetic images through ``python -m siu3r_tpu_torch.cli.inference``
      (its own process, under its own settings) to ``output.ply``, read back and
      checked against the reference schema and this process's forward; then
@@ -31,12 +42,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      render of the same cameras, and the viewer's HTTP server on loopback, in
      every mode, with no blank RGB or depth frame.
 It then prints the kernels' JSON line and, last, the device line.
+``--phases`` runs the named phases only (after 1 and 2) and prints neither.
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -69,11 +82,22 @@ MSDA_ATOL = 1e-5
 # transmittance 1e-4, and it sums in another order; scaled by the largest
 # colour (at least 1) and, for depth, the largest depth of the inputs
 RASTER_ATOL = 2e-4
+# raster backward (the JAX package's own, tests/test_rasterizer_kernel.py):
+# rtol 1e-4 and atol 1e-5 against the plain VJP of what the kernel
+# composites, the atol scaled for each parameter slot by its largest
+# gradient (at least 1); against the plain VJP of a saturating tile's whole
+# list (its tail behind T <= 1e-4 is left out by the kernel) atol 2e-4 x 2048
+RASTER_BWD_RTOL, RASTER_BWD_ATOL = 1e-4, 1e-5
+RASTER_BWD_SAT_ATOL = 2e-4 * 2048
 RENDER_RTOL, RENDER_ATOL, RENDER_DEPTH_ATOL = 1e-3, 1e-3, 1e-2
 SLICE_RTOL, SLICE_ATOL = 1e-3, 1e-4
 # a render is compared only where its target views see the scene: mean alpha
 # at least this
 MIN_COVERAGE = 0.1
+# and a timed train step's render composites at least this many chunks of 128
+# gaussians per live tile before the tile's exit (of 32 at K = 4096), so that
+# the render's backward, kernel 6, does real work
+MIN_SWEPT = 4.0
 LABEL_AGREEMENT = 0.999
 
 
@@ -427,16 +451,31 @@ def _raster_work(table, counts, params, swept) -> tuple[float, float]:
     return float(done.sum().item()) * TILE_H * TILE_W, float(kept)
 
 
+def _listed_bytes(table, counts, colors, swept) -> float:
+    """The bytes of the inputs that the tiles need up to each tile's exit:
+    the counts, the table's entries, and once each the params (8 floats) of
+    every (view, gaussian) and the colours of every (colour set, gaussian)
+    those entries name."""
+    n, t, k = table.shape
+    g, c = colors.shape[-2:]
+    done = torch.minimum(counts, swept * 128)
+    listed = torch.arange(k, device=table.device) < done[..., None]  # [N, T, K]
+    view = torch.arange(n, device=table.device)[:, None, None]
+    ids = table.long()
+    n_params = torch.unique((view * g + ids)[listed]).numel()
+    n_colors = torch.unique((view // (n // colors.shape[0]) * g + ids)[listed]).numel()
+    return 4.0 * (counts.numel() + float(listed.sum().item()) + 8 * n_params + c * n_colors)
+
+
 def _raster_cost(table, counts, params, colors, swept) -> tuple[float, float]:
-    """Bytes: table, counts, params and colours in, once each; colour, depth,
-    alpha and the swept counts out. Operations (fp32): 15 for the alpha of
-    each pair composited before the exit (the exp counted as one), and 5 + 2C
-    for each pair whose alpha is kept."""
+    """Bytes: the inputs up to each tile's exit (``_listed_bytes``) in;
+    colour, depth, alpha and the swept counts out. Operations (fp32): 15 for
+    the alpha of each pair composited before the exit (the exp counted as
+    one), and 5 + 2C for each pair whose alpha is kept."""
     n, t, k = table.shape
     c = colors.shape[-1]
     pairs, kept = _raster_work(table, counts, params, swept)
-    nbytes = 4.0 * (table.numel() + counts.numel() + params.numel() + colors.numel()
-                    + n * IMAGE[0] * IMAGE[1] * (c + 2) + n * t)
+    nbytes = _listed_bytes(table, counts, colors, swept) + 4.0 * (n * IMAGE[0] * IMAGE[1] * (c + 2) + n * t)
     return nbytes, 15.0 * pairs + (5.0 + 2.0 * c) * kept
 
 
@@ -547,6 +586,232 @@ def phase_render_kernels() -> dict:
     log("kernels", f"binning equal to its plain version, raster within {RASTER_ATOL} of its plain version "
                    "on the eval shapes and every edge case")
     return worst
+
+
+# ---------------------------------------------------------------- phase 3: raster backward, autograd
+
+
+def _raster_bwd_cost(table, counts, params, colors, swept) -> tuple[float, float]:
+    """The least work of the function, not of the kernel's design. Bytes: the
+    inputs up to each tile's exit (``_listed_bytes``) and the three image
+    cotangents in; the parameter and colour gradients out, whole. Operations
+    (fp32): 15 for the alpha of each pair composited before the exit, once,
+    and 36 + 4C for each pair whose alpha is kept (w, r, the transmittance,
+    the suffix, dalpha with its division counted as one, the seven parameter
+    terms and C colour terms). The kernel sweeps every pair twice."""
+    n = table.shape[0]
+    c = colors.shape[-1]
+    pairs, kept = _raster_work(table, counts, params, swept)
+    n_pix = n * IMAGE[0] * IMAGE[1]
+    nbytes = (_listed_bytes(table, counts, colors, swept)
+              + 4.0 * (n_pix * (c + 2) + params.numel() + colors.numel()))
+    return nbytes, 15.0 * pairs + (36.0 + 4.0 * c) * kept
+
+
+PARAM_SLOTS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "opacity", "depth")
+
+
+def _bwd_excess(got, want, rtol, atol) -> tuple[float, float]:
+    """(max abs err, worst excess over |err| <= rtol |want| + atol)."""
+    diff = (got - want).abs()
+    return diff.max().item(), (diff - rtol * want.abs() - atol).max().item()
+
+
+def _bwd_errors(got, want) -> dict:
+    """Kernel 6's gradients against the plain VJP's, per parameter slot and
+    for the colours: {part: (max abs err, atol, worst excess)}, each within
+    rtol RASTER_BWD_RTOL and an atol of RASTER_BWD_ATOL x max(the slot's own
+    largest |gradient|, 1) for a parameter slot (the conic's gradients grow
+    with dx^2 and would set one shared scale) and RASTER_BWD_ATOL for the
+    colours, as the JAX package's test holds them."""
+    (dp, dc), (wp, wc) = got, want
+    parts = {name: (dp[..., i], wp[..., i]) for i, name in enumerate(PARAM_SLOTS)}
+    parts["colors"] = (dc, wc)
+    out = {}
+    for name, (a, b) in parts.items():
+        atol = RASTER_BWD_ATOL * (max(1.0, b.abs().max().item()) if name != "colors" else 1.0)
+        err, excess = _bwd_excess(a, b, RASTER_BWD_RTOL, atol)
+        if not bool(torch.isfinite(a).all()):
+            excess = math.inf
+        out[name] = (err, atol, excess)
+    if dp[..., 7].abs().max().item() != 0.0:
+        out["unused_slot"] = (dp[..., 7].abs().max().item(), 0.0, math.inf)
+    return out
+
+
+def check_raster_bwd(name, table, counts, params, colors, iters, gen) -> dict:
+    """Kernel 6 against the plain VJP on the same inputs and random
+    cotangents, per parameter slot and for the colours (``_bwd_errors``).
+    The kernel, like the forward,
+    stops a tile at the chunk boundary where every pixel has T <= 1e-4, which
+    is the plain compositing of the tile's first swept x 128 gaussians: the
+    plain VJP takes the counts cut there, so a saturating tile is held to the
+    same tolerance as the others."""
+    from siu3r_tpu_torch.kernels.raster import (_flatten, _raster_cuda, raster_backward,
+                                                raster_backward_plain)
+
+    _, table, counts, params, colors = _flatten(table, counts, params, colors)  # views flattened
+    n, t, k = table.shape
+    c = colors.shape[-1]
+    swept = _raster_cuda(table, counts, params, colors, IMAGE)[3]
+    cut = torch.minimum(counts, swept * 128)
+    gcolor = torch.randn(n, *IMAGE, c, device="cuda", generator=gen)
+    gdepth = torch.randn(n, *IMAGE, device="cuda", generator=gen) * 0.1
+    galpha = torch.randn(n, *IMAGE, device="cuda", generator=gen)
+    grads = (gcolor, gdepth, galpha)
+    kern = lambda: raster_backward(table, counts, params, colors, IMAGE, *grads)
+    plain = lambda: raster_backward_plain(table, cut, params, colors, IMAGE, *grads)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    res = dict(saturating_tiles=int((cut < counts).sum().item()))
+    errs = _bwd_errors(got, want)
+    bad = {part: e for part, e in errs.items() if not e[2] <= 0}
+    if bad:
+        raise AssertionError(f"raster_bwd {name}: (max_abs_err, atol, excess) {bad} beyond rtol "
+                             f"{RASTER_BWD_RTOL}, or not finite")
+    res["err"] = max(e[0] for e in errs.values())
+    if iters:
+        nbytes, ops = _raster_bwd_cost(table, counts, params, colors, swept)
+        res["ms"], res["elapsed"], _ = time_ms(kern, iters)
+        res["plain_ms"] = time_ms(plain, max(2, iters // 10))[0]
+        res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+    log("kernel", f"raster_bwd {name} views={n} K={k} C={c}: max_abs_err, atol and worst excess per part "
+                  + ", ".join(f"{part} {e[0]:.3g}/{e[1]:.3g}/{e[2]:.3g}" for part, e in errs.items())
+                  + f"; saturating tiles {res['saturating_tiles']} of {n * t}"
+                  + (f", ms {res['ms']:.5f} (elapsed {res['elapsed']:.5f}) plain_ms {res['plain_ms']:.5f} "
+                     f"bound_ms {res['bound_ms']:.5f} ({res['bound_by']})" if iters else ""))
+    return res
+
+
+def check_raster_bwd_saturating_tile(gen) -> float:
+    """The JAX package's saturated-tile test (tests/test_rasterizer_kernel.py)
+    on the card: one tile listing 512 fat opaque splats, unit cotangents, the
+    kernel against the plain VJP of the whole list (no cut) within atol
+    RASTER_BWD_SAT_ATOL: what the kernel leaves out lies behind T <= 1e-4."""
+    from siu3r_tpu_torch.kernels.raster import _raster_cuda, raster_backward, raster_backward_plain
+
+    k, g = 512, 512
+    n_tiles = (IMAGE[0] // 16) * (IMAGE[1] // 128)
+    table = torch.arange(g, dtype=torch.int32, device="cuda").expand(1, n_tiles, k).contiguous()
+    counts = torch.zeros(1, n_tiles, dtype=torch.int32, device="cuda")
+    counts[0, 0] = k
+    params = torch.zeros(1, g, 8, device="cuda")
+    params[..., 0] = torch.rand(1, g, device="cuda", generator=gen) * 128
+    params[..., 1] = torch.rand(1, g, device="cuda", generator=gen) * 16
+    params[..., 2] = params[..., 4] = 0.002
+    params[..., 5] = 0.9
+    params[..., 6] = torch.rand(1, g, device="cuda", generator=gen) * 9 + 1
+    colors = torch.rand(1, g, 3, device="cuda", generator=gen)
+    grads = (torch.ones(1, *IMAGE, 3, device="cuda"), torch.ones(1, *IMAGE, device="cuda"),
+             torch.ones(1, *IMAGE, device="cuda"))
+    swept = _raster_cuda(table, counts, params, colors, IMAGE)[3]
+    if int(swept[0, 0]) * 128 >= k:
+        raise AssertionError("raster_bwd saturating tile: the tile did not stop before the end of its list")
+    got = raster_backward(table, counts, params, colors, IMAGE, *grads)
+    want = raster_backward_plain(table, counts, params, colors, IMAGE, *grads)
+    worst = 0.0
+    for key, a, b in zip(("dparams", "dcolors"), got, want):
+        err, excess = _bwd_excess(a, b, 0.0, RASTER_BWD_SAT_ATOL)
+        if not excess <= 0:
+            raise AssertionError(f"raster_bwd saturating tile: {key} max_abs_err {err} > {RASTER_BWD_SAT_ATOL}")
+        worst = max(worst, err)
+    log("kernel", f"raster_bwd saturating tile (stopped after {int(swept[0, 0])} of {k // 128} chunks) against "
+                  f"the uncut plain VJP: max_abs_err {worst:.3g} <= {RASTER_BWD_SAT_ATOL}")
+    return worst
+
+
+def phase_raster_bwd() -> float:
+    """Kernel 6 against the plain VJP: the training shapes (4 target views x
+    32 tiles, K = 4096, C = 3), then the edge cases. Returns the worst error."""
+    from siu3r_tpu_torch.kernels.binning import bin_gaussians
+    from siu3r_tpu_torch.render.projection import ProjectedGaussians
+    from siu3r_tpu_torch.render.rasterizer import pack_params
+
+    gen = torch.Generator(device="cuda").manual_seed(2718)
+    g, views, k = 2 * 256 * 256, 4, 4096
+    proj, params = _synthetic_scene(gen, g, views)
+    table, counts = bin_gaussians(proj, IMAGE, k, *SLOTS)
+    rgb = torch.rand(views, g, 3, device="cuda", generator=gen)
+    worst = check_raster_bwd("train_shapes_C3", table, counts, params, rgb, 10, gen)["err"]
+    for c in (1, 16):
+        cols = torch.rand(1, g, c, device="cuda", generator=gen)
+        worst = max(worst, check_raster_bwd(f"C{c}", table, counts, params, cols, 0, gen)["err"])
+    tt, tc = bin_gaussians(proj, IMAGE, 128, *SLOTS)
+    worst = max(worst, check_raster_bwd("truncated_K128", tt, tc, params, rgb, 0, gen)["err"])
+    tied = proj._replace(depth=torch.round(proj.depth * 2) / 2)
+    tt, tc = bin_gaussians(tied, IMAGE, k, *SLOTS)
+    worst = max(worst, check_raster_bwd("tied_depths", tt, tc, params, rgb, 0, gen)["err"])
+    one = ProjectedGaussians(*(x[:, :1].contiguous() for x in proj))
+    one = one._replace(mean2d=torch.full_like(one.mean2d, 100.0), radius=torch.full_like(one.radius, 9.0))
+    ot, oc = bin_gaussians(one, IMAGE, k, *SLOTS)  # counts 0 and 1
+    oparams = pack_params(one, torch.full((1,), 0.9, device="cuda"))
+    worst = max(worst, check_raster_bwd("one_gaussian", ot, oc, oparams, rgb[:, :1].contiguous(), 0, gen)["err"])
+    dead = proj._replace(radius=torch.zeros_like(proj.radius))
+    dt, dc = bin_gaussians(dead, IMAGE, k, *SLOTS)
+    worst = max(worst, check_raster_bwd("all_dead", dt, dc, params, rgb, 0, gen)["err"])
+    sproj, sparams = _synthetic_scene(gen, g, views, opaque=True)
+    st, sc = bin_gaussians(sproj, IMAGE, k, *SLOTS)
+    res = check_raster_bwd("saturated", st, sc, sparams, rgb, 0, gen)
+    if res["saturating_tiles"] == 0:
+        raise AssertionError("raster_bwd saturated: no tile stopped before the end of its list")
+    worst = max(worst, res["err"])
+    check_raster_bwd_saturating_tile(gen)
+    log("kernels", f"raster_bwd within rtol {RASTER_BWD_RTOL} and atol {RASTER_BWD_ATOL} (x each parameter "
+                   "slot's scale) of the plain VJP (counts cut where the kernel stops) at the training shapes "
+                   "and every edge case; the "
+                   f"saturating tile within {RASTER_BWD_SAT_ATOL} of the uncut plain VJP")
+    return worst
+
+
+def phase_autograd() -> None:
+    """Every wrapped forward kernel on CUDA inputs that require grad: the
+    output has a grad_fn, and the gradients equal those of the plain
+    version's autograd on the same inputs."""
+    from siu3r_tpu_torch.kernels.flash_attention import flash_attn, flash_attn_plain
+    from siu3r_tpu_torch.kernels.msda import msda, msda_plain
+    from siu3r_tpu_torch.kernels.raster import raster, raster_plain
+    from siu3r_tpu_torch.kernels.binning import bin_gaussians
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+
+    def compare(name, kern, plain, inputs, tol):
+        inputs = [x.detach().requires_grad_(True) for x in inputs]
+        out = kern(*inputs)
+        outs = out if isinstance(out, tuple) else (out,)
+        if outs[0].grad_fn is None:
+            raise AssertionError(f"autograd {name}: the kernel's output has no grad_fn")
+        ref = plain(*inputs)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        cots = [torch.randn(o.shape, device="cuda", generator=gen) for o in outs if o.is_floating_point()]
+        got = torch.autograd.grad([o for o in outs if o.is_floating_point()], inputs, cots)
+        want = torch.autograd.grad([o for o in refs if o.is_floating_point()], inputs, cots)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            scale = max(1.0, b.abs().max().item())
+            err = (a - b).abs().max().item()
+            if not math.isfinite(err) or err > tol * scale or b.abs().max().item() == 0.0:
+                raise AssertionError(f"autograd {name}: input {i} gradient err {err} (scale {scale}) > {tol} "
+                                     "x scale, or zero")
+            worst = max(worst, err / scale)
+        log("autograd", f"{name}: grad_fn {type(outs[0].grad_fn).__name__}, gradients of every input equal "
+                        f"the plain version's autograd within {tol} x scale (worst {worst:.3g})")
+
+    q, k, v, qrope, krope, _ = _attn_inputs(ATTN_MAIN["encoder"][0], gen, False)
+    compare("flash_attn_rope", lambda q, k, v: flash_attn(q, k, v, 0.125, qrope, krope),
+            lambda q, k, v: flash_attn_plain(q, k, v, 0.125, qrope, krope), (q, k, v), 1e-4)
+    q, k, v, _, _, _ = _attn_inputs(ATTN_MAIN["m2f_query_self"][0], gen, False)
+    compare("flash_attn", lambda q, k, v: flash_attn(q, k, v, 32 ** -0.5),
+            lambda q, k, v: flash_attn_plain(q, k, v, 32 ** -0.5), (q, k, v), 1e-4)
+    case = MSDA_MAIN["adapter"][0]
+    value, loc, aw = _msda_inputs(case, gen)
+    compare("msda", lambda a, b, c: msda(a, case[5], b, c), lambda a, b, c: msda_plain(a, case[5], b, c),
+            (value, loc, aw), 1e-4)
+    proj, params = _synthetic_scene(gen, 4096, 2)
+    table, counts = bin_gaussians(proj, IMAGE, 512, *SLOTS)
+    rgb = torch.rand(2, 4096, 3, device="cuda", generator=gen)
+    # a sparse scene: no tile stops before the end of its list
+    compare("raster", lambda p, c: raster(table, counts, p, c, IMAGE),
+            lambda p, c: raster_plain(table, counts, p, c, IMAGE), (params, rgb), 1e-4)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -790,27 +1055,30 @@ def phase_forward() -> dict:
 N_TARGET = 6  # 2 context + 4 extra target views, as the validation CLI sets
 
 
-def _record_render_calls(run) -> dict:
-    """Run ``run`` once with the rasterizer's binning and raster calls
-    recorded: {"bin": [args], "raster": [args]}."""
+@contextlib.contextmanager
+def _render_calls():
+    """Record the rasterizer's binning and raster calls inside the block:
+    {"bin": [args], "raster": [args], "raster_out": [detached outputs]}."""
     import siu3r_tpu_torch.render.rasterizer as R
 
-    calls = {"bin": [], "raster": []}
+    calls = {"bin": [], "raster": [], "raster_out": []}
     orig = R.bin_gaussians, R.raster
 
-    def rec(name, fn):
-        def wrapped(*args):
-            calls[name].append(args)
-            return fn(*args)
-        return wrapped
+    def bin_rec(*args):
+        calls["bin"].append(args)
+        return orig[0](*args)
 
-    R.bin_gaussians, R.raster = rec("bin", orig[0]), rec("raster", orig[1])
+    def raster_rec(*args):
+        calls["raster"].append(args)
+        out = orig[1](*args)
+        calls["raster_out"].append(tuple(x.detach() for x in out))
+        return out
+
+    R.bin_gaussians, R.raster = bin_rec, raster_rec
     try:
-        run()
+        yield calls
     finally:
         R.bin_gaussians, R.raster = orig
-    torch.cuda.synchronize()
-    return calls
 
 
 def phase_eval() -> dict:
@@ -881,7 +1149,8 @@ def phase_eval() -> dict:
         log("eval", f"  device {ms:8.3f} ms  {name[:100]}")
 
     # the binning and raster kernels on the step's own inputs
-    calls = _record_render_calls(run)
+    with _render_calls() as calls:
+        run()
     if len(calls["bin"]) != 1 or len(calls["raster"]) != 2:
         raise AssertionError(f"recorded {len(calls['bin'])} binning and {len(calls['raster'])} raster calls")
     proj, _, kcap, _, _ = calls["bin"][0]
@@ -895,6 +1164,286 @@ def phase_eval() -> dict:
     torch.cuda.empty_cache()
     return res
 
+
+
+# ---------------------------------------------------------------- phase 8: train step
+
+N_OBJECTS, N_VALID = 48, 15  # bench.py --train's ground truth: 48 padded objects, 15 valid
+TRAIN_TARGETS = 4
+GRAD_REL_L2 = 1e-3
+
+
+def _train_batch(images, intr, targets, n_objects, n_valid, n_classes, seed) -> dict:
+    """The JAX bench.py --train convention: seeded images and binary masks,
+    ``n_objects`` padded objects of which the first ``n_valid`` are valid,
+    and view ids that put the context views between the target views (the
+    first and the last of them). Target cameras frame the scene."""
+    b, v, h, w, _ = images.shape
+    ext, target_intr = targets
+    n = ext.shape[1]
+    gen = torch.Generator(device=images.device).manual_seed(seed)
+    tgt_ids = torch.arange(n, device=images.device, dtype=torch.int32)[None] * 10
+    ctx_pos = torch.linspace(0, n - 1, v, device=images.device).round().long()
+    return {
+        "context_views_images": images,
+        "context_views_intrinsics": intr,
+        "context_views_id": tgt_ids[:, ctx_pos].contiguous(),
+        "target_views_id": tgt_ids,
+        "target_views_images": torch.rand(b, n, h, w, 3, device=images.device, generator=gen),
+        "target_views_extrinsics": ext,
+        "target_views_intrinsics": target_intr,
+        "gt_masks": (torch.rand(b, n_objects, v, h, w, device=images.device, generator=gen) > 0.7).float(),
+        "gt_classes": torch.randint(0, n_classes, (b, n_objects), device=images.device, generator=gen, dtype=torch.int32),
+        "gt_valid": (torch.arange(n_objects, device=images.device) < n_valid)[None].expand(b, -1).contiguous(),
+    }
+
+
+def _injected_coords(cfg, b, n_objects, v, device, seed) -> list:
+    m2f = cfg.mask2former
+    n_sampled = int(m2f.train_num_points * m2f.oversample_ratio)
+    n_random = m2f.train_num_points - int(m2f.importance_sample_ratio * m2f.train_num_points)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [{
+        "match": torch.rand(b, 1024, 2, generator=gen).to(device),
+        "pre": torch.rand(b, n_objects * v, n_sampled, 2, generator=gen).to(device),
+        "extra": torch.rand(b, n_objects * v, n_random, 2, generator=gen).to(device),
+    } for _ in range(m2f.decoder_layers)]
+
+
+def _render_grads(gaussians, batch, hw) -> dict:
+    """The gradient of mean((color - target)^2) + mean(depth x weights) in
+    the Gaussians' means, covariances, opacities and harmonics."""
+    from siu3r_tpu_torch.renderer import render_gaussians
+
+    inputs = {f: getattr(gaussians, f).detach().clone().requires_grad_(True)
+              for f in ("means", "covariances", "opacities", "harmonics")}
+    r = render_gaussians(gaussians.replace(**inputs), batch["target_views_extrinsics"],
+                         batch["target_views_intrinsics"], hw)
+    weights = torch.linspace(-1.0, 1.0, hw[1], device=r.depth.device)
+    loss = ((r.color - batch["target_views_images"]) ** 2).mean() + (r.depth * weights).mean()
+    grads = torch.autograd.grad(loss, list(inputs.values()))
+    return {k: g for k, g in zip(inputs, grads)}, float(r.alpha.detach().mean())
+
+
+def phase_train_small() -> None:
+    """(a) The small config's train step on the GPU (kernels) against the CPU
+    (plain versions) with the same weights and sample points: every loss
+    term, then the render loss's gradient on the step's own Gaussians."""
+    from siu3r_tpu_torch.config import PipelineCfg, RootCfg
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    root = RootCfg(pipeline=PipelineCfg(model=_small_cfg()))
+    gpu = Pipeline(root, device="cuda", seed=7).init_train(steps_per_epoch=10)
+    cpu = Pipeline(root, device="cpu", seed=0).init_train(steps_per_epoch=10)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.rand(1, 2, 64, 64, 3).astype(np.float32))
+    intr = torch.tensor([[1.24, 0, 0.5], [0, 1.24, 0.5], [0, 0, 1]]).expand(1, 2, 3, 3).contiguous()
+    with torch.no_grad():
+        means = cpu.model.train()(images, intr).gaussians.means
+    batch = _train_batch(images, intr, _target_views(means, TRAIN_TARGETS), 6, 4,
+                         root.pipeline.model.mask2former.num_labels, seed=1)
+    inj = _injected_coords(root.pipeline.model, 1, 6, 2, "cpu", seed=2)
+    _, lg = gpu.loss_fn({k: x.cuda() for k, x in batch.items()}, None,
+                        injected_coords=[{k: x.cuda() for k, x in d.items()} for d in inj])
+    _, lc = cpu.loss_fn(batch, None, injected_coords=inj)
+    worst = 0.0
+    for key, ref in lc.items():
+        a, b = float(lg[key].detach()), float(ref.detach())
+        excess = abs(a - b) - SLICE_RTOL * abs(b)
+        worst = max(worst, excess)
+        if not math.isfinite(a) or excess > SLICE_ATOL:
+            raise AssertionError(f"train slice: loss {key} {a} on cuda vs {b} on cpu beyond rtol {SLICE_RTOL} "
+                                 f"atol {SLICE_ATOL}")
+    # the render loss's gradient on the GPU step's own Gaussians, copied to the CPU
+    with torch.no_grad():
+        g = gpu.model(*(batch[k].cuda() for k in ("context_views_images", "context_views_intrinsics"))).gaussians
+    gg, coverage = _render_grads(g, {k: x.cuda() for k, x in batch.items()}, (64, 64))
+    gc, _ = _render_grads(g.replace(**{f: getattr(g, f).cpu() for f in ("means", "covariances", "harmonics",
+                                                                         "opacities")}), batch, (64, 64))
+    if coverage < MIN_COVERAGE:
+        raise AssertionError(f"train slice: the target views see almost nothing (mean alpha {coverage})")
+    errs = {}
+    for key, a in gg.items():
+        b = gc[key].double()
+        errs[key] = ((a.cpu().double() - b).norm() / b.norm().clamp(min=1e-30)).item()
+        if not bool(torch.isfinite(a).all()) or errs[key] > GRAD_REL_L2 or b.abs().max().item() == 0.0:
+            raise AssertionError(f"train slice: render gradient {key} relative L2 error {errs[key]} > "
+                                 f"{GRAD_REL_L2} (cuda kernels vs cpu plain), or zero")
+    log("train", f"small config loss terms on cuda (kernels) vs cpu (plain) within rtol {SLICE_RTOL} atol "
+                 f"{SLICE_ATOL} (worst excess {worst:.3g}): total {float(lg['total'].detach()):.5f}; render-loss gradient "
+                 f"on the step's Gaussians (mean alpha {coverage:.3f}) relative L2 errors "
+                 + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+
+def _count_syncs(run) -> tuple[int, dict]:
+    """Run ``run`` with every synchronising CUDA call reported: (count,
+    {source: count}), the source being the innermost line of the port's
+    code on the call's Python stack."""
+    import collections
+    import threading
+    import traceback
+    import warnings
+
+    sources = collections.Counter()
+    inside = False  # warnings from switching the debug mode itself are not the run's
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not inside or "synchronizing" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        frames = [f for f in stack if "siu3r_tpu_torch" in f.filename]
+        where = (f"{Path(frames[-1].filename).name}:{frames[-1].lineno}" if frames else
+                 "; ".join(f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in stack[-3:]))
+        sources[f"{threading.current_thread().name}: {where}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside = True
+            run()
+        finally:
+            inside = False
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(sources.values()), dict(sources)
+
+
+def _occupancy(calls) -> tuple[float, float]:
+    """(mean alpha, chunks swept per live tile) of the first recorded raster
+    call."""
+    counts = calls["raster"][0][1]
+    _, _, alpha, swept = calls["raster_out"][0]
+    live = counts > 0
+    return alpha.mean().item(), swept[live].float().mean().item() if bool(live.any()) else 0.0
+
+
+def phase_train() -> dict:
+    """(b) ``Pipeline.train_step`` at full width: launches per step, finite
+    losses, the frozen encoder untouched and the trained parts moved; then
+    timed, each step's target cameras framing the Gaussians that step
+    renders, with kernel 6 held against its plain version on a step's own
+    inputs."""
+    from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
+    from siu3r_tpu_torch.kernels import _build
+    from siu3r_tpu_torch.pipeline import Pipeline
+    from siu3r_tpu_torch.train.optimizer import group_of
+
+    phase_train_small()
+    cfg = bind_scannet_classes(RootCfg())
+    pipe = Pipeline(cfg, device="cuda", seed=0).init_train(steps_per_epoch=1000)
+    mcfg = cfg.pipeline.model
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.rand(1, 2, 256, 256, 3, device="cuda", generator=gen)
+    k = torch.tensor([[318 / 256, 0, 0.5], [0, 318 / 256, 0.5], [0, 0, 1]], device="cuda")
+    intr = k.expand(1, 2, 3, 3).contiguous()
+
+    def targets():
+        # cameras framing the Gaussians of a train-mode forward of the current
+        # weights, which the next step renders (each step moves them: the
+        # heads start from a random init). Set-up: it syncs with the host and
+        # updates the BatchNorms' running statistics.
+        with torch.no_grad():
+            return _target_views(pipe.model.train()(images, intr).gaussians.means, TRAIN_TARGETS)
+
+    batch = _train_batch(images, intr, targets(), N_OBJECTS, N_VALID, mcfg.mask2former.num_labels, seed=3)
+
+    def frame():
+        batch.update(zip(("target_views_extrinsics", "target_views_intrinsics"), targets()))
+
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    run = lambda: pipe.train_step(batch, step_gen)
+    params = dict(pipe.model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+
+    for _ in range(2):  # warm-up: cuDNN algorithm choice, allocator
+        losses = run()
+    torch.cuda.synchronize()
+    frame()
+    _build.reset_launch_counts()
+    n_syncs, sync_sources = _count_syncs(run)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    lap_syncs = sum(n for where, n in sync_sources.items() if "lap.py:" in where)
+    expected = {**expected_launches(mcfg), "bin": 1, "raster": 1, "raster_bwd": 1}
+    if launches != expected:
+        raise AssertionError(f"train step launches {launches} != expected {expected}")
+    losses = run()
+    values = {key: float(x) for key, x in losses.items()}
+    if not all(math.isfinite(x) for x in values.values()):
+        raise AssertionError(f"train step losses not finite: {values}")
+    moved = {}
+    for n, p in params.items():
+        d = (p.detach() - before[n]).abs().max().item()
+        group = "frozen" if group_of(n, True) == "frozen" else n.split(".")[0]
+        moved[group] = max(moved.get(group, 0.0), d)
+    if moved["frozen"] != 0.0:
+        raise AssertionError(f"the frozen encoder moved by {moved['frozen']}")
+    for part in ("mask2former", "adapter", "gaussian_param_head1", "gaussian_param_head2"):
+        if not moved.get(part, 0.0) > 0.0:
+            raise AssertionError(f"{part} did not move: {moved}")
+    del before
+
+    # timed steps, each framed before its clock starts; every one must see
+    # the scene and composite real work (MIN_COVERAGE, MIN_SWEPT)
+    times, occupancy = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(8):
+        frame()
+        with _render_calls() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        occupancy.append(_occupancy(calls))
+        del calls
+    peak = torch.cuda.max_memory_allocated()
+    alphas, swepts = zip(*occupancy)
+    if min(alphas) < MIN_COVERAGE or min(swepts) < MIN_SWEPT:
+        raise AssertionError(f"timed train steps: mean alpha {alphas}, chunks swept per live tile {swepts}: "
+                             f"below {MIN_COVERAGE} or {MIN_SWEPT}")
+    frame()
+    device_ms, top = _device_breakdown(run, 1)
+    med = statistics.median(times)
+    res = dict(launches=launches, median_s=med, min_s=min(times), max_s=max(times), steps_per_s=1.0 / med,
+               peak_gib=peak / 2**30, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3),
+               top_device_ms=top, host_syncs=n_syncs, sync_sources=sync_sources, lap_syncs=lap_syncs,
+               losses=values, moved=moved, step=pipe.optimizer.count, mean_alpha=list(alphas),
+               swept_per_live_tile=list(swepts))
+    log("train", f"Pipeline.train_step, ViT-L two-view 256x256 B=1 fp32, {TRAIN_TARGETS} target views, "
+                 f"{N_OBJECTS} objects ({N_VALID} valid): launches {launches} (expected), losses finite "
+                 f"({', '.join(f'{k} {values[k]:.4f}' for k in ('seg', 'depth_smoothness', 'render_mse', 'lpips', 'total'))}), "
+                 f"frozen encoder unchanged, moved {({k: round(v, 8) for k, v in moved.items()})}")
+    log("train", f"median of {len(times)} warm steps {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+                 f"{max(times) * 1e3:.2f}) = {1.0 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; device "
+                 f"busy {device_ms:.2f} ms per step, idle share {res['idle_share']:.3f}; host syncs per step "
+                 f"{n_syncs} (the LAP's convergence tests {lap_syncs}; sources {sync_sources}); per timed step "
+                 f"mean alpha {[round(a, 3) for a in alphas]}, chunks swept per live tile "
+                 f"{[round(x, 2) for x in swepts]}")
+    for name, ms in top[:12]:
+        log("train", f"  device {ms:8.3f} ms  {name[:100]}")
+
+    # the render kernels on a framed step's own inputs
+    frame()
+    with _render_calls() as calls:
+        run()
+    if len(calls["bin"]) != 1 or len(calls["raster"]) != 1:
+        raise AssertionError(f"recorded {len(calls['bin'])} binning and {len(calls['raster'])} raster calls")
+    table, counts, rparams, colors, _ = (x.detach() if isinstance(x, torch.Tensor) else x
+                                         for x in calls["raster"][0])
+    coverage, swept = _occupancy(calls)
+    if coverage < MIN_COVERAGE or swept < MIN_SWEPT:
+        raise AssertionError(f"train step: mean alpha {coverage}, chunks swept per live tile {swept}")
+    res["raster"] = check_raster("train_step_C3", table, counts, rparams, colors, 20)
+    res["raster_bwd"] = check_raster_bwd("train_step_C3", table, counts, rparams, colors, 10,
+                                         torch.Generator(device="cuda").manual_seed(5))
+    log("train", f"render of the checked step: mean alpha {coverage:.3f}, chunks swept per live tile "
+                 f"{swept:.2f}, saturating tiles {res['raster_bwd']['saturating_tiles']}")
+    del pipe, calls, batch
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1097,21 +1646,40 @@ SOURCES = {
     "msda": ("siu3r_tpu_torch/csrc/msda.cu", "siu3r_tpu/ops/msda_pallas.py:44"),
     "bin": ("siu3r_tpu_torch/csrc/binning.cu", "siu3r_tpu/render/rasterizer.py:189"),
     "raster": ("siu3r_tpu_torch/csrc/raster.cu", "siu3r_tpu/render/rasterizer.py:379"),
+    "raster_bwd": ("siu3r_tpu_torch/csrc/raster_bwd.cu", "siu3r_tpu/render/rasterizer.py:527"),
 }
+PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "raster_bwd": phase_raster_bwd,
+          "autograd": phase_autograd, "slice": phase_slice_check, "forward": phase_forward, "eval": phase_eval,
+          "train": phase_train, "cli": phase_cli}
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--report", type=str, default=None, help="also write every number as JSON here")
+    parser.add_argument("--phases", type=str, default=",".join(PHASES),
+                        help="comma-separated phases to run after the environment and the build "
+                             f"(default: all of {','.join(PHASES)}); the JSON lines need all of them")
     args = parser.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        parser.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
 
     smi = phase_environment()
     phase_build()
+    if set(phases) != set(PHASES):
+        for name, phase in PHASES.items():
+            if name in phases:
+                phase()
+        log("done", f"phases {phases} passed; no JSON lines (they need every phase)")
+        return
     per_kernel = phase_kernels()
     render_err = phase_render_kernels()
+    bwd_err = phase_raster_bwd()
+    phase_autograd()
     phase_slice_check()
     fwd = phase_forward()
     ev = phase_eval()
+    tr = phase_train()
     phase_cli()
 
     kernels = []
@@ -1135,10 +1703,19 @@ def main(argv=None) -> None:
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": by, "library_ms": None,
         })
+    # the raster backward: per train step, on the step's own inputs
+    bwd = tr["raster_bwd"]
+    source, replaces = SOURCES["raster_bwd"]
+    kernels.append({
+        "name": "raster_bwd", "route": "cuda", "source": source, "replaces": replaces,
+        "launches": tr["launches"]["raster_bwd"], "max_abs_err": max(bwd_err, bwd["err"]),
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": None,
+    })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
-            {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev}, indent=1))
+            {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

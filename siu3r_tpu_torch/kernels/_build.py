@@ -43,6 +43,7 @@ _SIGNATURES = {
     "siu3r_msda_fwd": [_vp] * 6 + [_i] * 7 + [_vp],
     "siu3r_bin_gaussians": [_vp] * 4 + [_i] * 5 + [_vp],
     "siu3r_raster_fwd": [_vp] * 8 + [_i] * 9 + [_ll] * 2 + [_vp],
+    "siu3r_raster_bwd": [_vp] * 9 + [_i] * 9 + [_ll] * 2 + [_vp],
 }
 
 

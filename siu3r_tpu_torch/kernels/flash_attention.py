@@ -5,6 +5,14 @@ One templated CUDA kernel replaces the two TPU kernels of
 RoPE2D attention (``_attn_rope_kernel``, launches counted as
 ``flash_attn_rope``), without them the plain attention with an optional
 per-batch key mask (``_attn_kernel``, counted as ``flash_attn``).
+
+``flash_attn`` is differentiable (a ``torch.autograd.Function``). Its forward
+is the kernel on CUDA tensors and the plain version on CPU tensors. Its
+backward recomputes the plain version (RoPE2D, then ``attention``) and takes
+its VJP, the counterpart of the JAX package's ``_flash_rope_diff_bwd`` and
+``_flash_diff_bwd`` (``siu3r_tpu/ops/attention.py``): the TPU kernels are
+forward-only and their gradient is XLA code, so there is no TPU backward
+kernel to port here.
 """
 
 from __future__ import annotations
@@ -66,23 +74,8 @@ def _check(q, k, v, qrope, krope, kv_mask) -> None:
         raise ValueError("kv_mask must be a contiguous bool [B, Nk] on q's device")
 
 
-def flash_attn(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    scale: float,
-    qrope: Optional[CosSin] = None,
-    krope: Optional[CosSin] = None,
-    kv_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """softmax(rot(q) rot(k)^T * scale) v.
-
-    q [B, H, Nq, D], k/v [B, H, Nk, D] fp32, D in (32, 64), any strides with
-    unit stride on D. qrope/krope: (cos, sin) tables [B, N, D] from
-    ``rope2d_cos_sin``, or None for no rotation. kv_mask: [B, Nk] bool, True =
-    attendable. Returns [B, H, Nq, D] contiguous. CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
-    """
+def _flash_attn_forward(q, k, v, scale, qrope, krope, kv_mask) -> torch.Tensor:
+    """The plain version on CPU tensors, the kernel on CUDA tensors."""
     if q.device.type == "cpu":
         return flash_attn_plain(q, k, v, scale, qrope, krope, kv_mask)
     if q.device.type != "cuda":
@@ -106,3 +99,49 @@ def flash_attn(
     _build.check_launch(err, name)
     _build.launch_counts[name] += 1
     return out
+
+
+class _FlashAttn(torch.autograd.Function):
+    """The kernel's forward with the plain version's VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, qcos, qsin, kcos, ksin, kv_mask):
+        qrope = None if qcos is None else (qcos, qsin)
+        krope = None if kcos is None else (kcos, ksin)
+        ctx.save_for_backward(q, k, v, qcos, qsin, kcos, ksin, kv_mask)
+        ctx.scale = scale
+        return _flash_attn_forward(q, k, v, scale, qrope, krope, kv_mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, qcos, qsin, kcos, ksin, kv_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = flash_attn_plain(
+                *inputs, ctx.scale, None if qcos is None else (qcos, qsin),
+                None if kcos is None else (kcos, ksin), kv_mask,
+            )
+            dq, dk, dv = torch.autograd.grad(out, inputs, grad)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attn(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    qrope: Optional[CosSin] = None,
+    krope: Optional[CosSin] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """softmax(rot(q) rot(k)^T * scale) v.
+
+    q [B, H, Nq, D], k/v [B, H, Nk, D] fp32, D in (32, 64), any strides with
+    unit stride on D. qrope/krope: (cos, sin) tables [B, N, D] from
+    ``rope2d_cos_sin``, or None for no rotation. kv_mask: [B, Nk] bool, True =
+    attendable. Returns [B, H, Nq, D] contiguous, differentiable in q, k, v.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if (qrope is None) != (krope is None):
+        raise ValueError("qrope and krope go together")
+    return _FlashAttn.apply(q, k, v, scale, *(qrope or (None, None)), *(krope or (None, None)), kv_mask)

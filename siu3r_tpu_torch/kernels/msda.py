@@ -3,6 +3,14 @@ plain version (``ops/deformable.multi_scale_deformable_attention``).
 
 Replaces the TPU kernel ``_level_kernel`` of ``siu3r_tpu/ops/msda_pallas.py``;
 launches are counted as ``msda``.
+
+``msda`` is differentiable (a ``torch.autograd.Function``). Its forward is
+the kernel on CUDA tensors and the plain version on CPU tensors. Its
+backward recomputes the plain version and takes its VJP, the counterpart of
+the JAX package's backward (``siu3r_tpu/ops/msda_pallas.py``, whose ``_bwd``
+differentiates ``_msda_matmul``, the same function): the TPU kernel is
+forward-only and its gradient is XLA code, so there is no TPU backward kernel
+to port here.
 """
 
 from __future__ import annotations
@@ -41,16 +49,8 @@ def _check(value, spatial_shapes, loc, aw) -> None:
             raise ValueError(f"{name} must be contiguous fp32 on {value.device}")
 
 
-def msda(
-    value: torch.Tensor,
-    spatial_shapes: Sequence[Tuple[int, int]],
-    sampling_locations: torch.Tensor,
-    attention_weights: torch.Tensor,
-) -> torch.Tensor:
-    """value [B, Len_in, H, D]; sampling_locations [B, Lq, H, L, P, 2] in
-    [0, 1] as (x, y); attention_weights [B, Lq, H, L, P]. Returns
-    [B, Lq, H*D] fp32. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+def _msda_forward(value, spatial_shapes, sampling_locations, attention_weights) -> torch.Tensor:
+    """The plain version on CPU tensors, the kernel on CUDA tensors."""
     if value.device.type == "cpu":
         return msda_plain(value, spatial_shapes, sampling_locations, attention_weights)
     if value.device.type != "cuda":
@@ -75,3 +75,34 @@ def msda(
     _build.check_launch(err, "msda")
     _build.launch_counts["msda"] += 1
     return out
+
+
+class _MSDA(torch.autograd.Function):
+    """The kernel's forward with the plain version's VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        ctx.spatial_shapes = spatial_shapes
+        return _msda_forward(value, spatial_shapes, sampling_locations, attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = msda_plain(inputs[0], ctx.spatial_shapes, inputs[1], inputs[2])
+            dvalue, dloc, dweights = torch.autograd.grad(out, inputs, grad)
+        return dvalue, None, dloc, dweights
+
+
+def msda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """value [B, Len_in, H, D]; sampling_locations [B, Lq, H, L, P, 2] in
+    [0, 1] as (x, y); attention_weights [B, Lq, H, L, P]. Returns
+    [B, Lq, H*D] fp32, differentiable in all three. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    return _MSDA.apply(value, tuple(spatial_shapes), sampling_locations, attention_weights)

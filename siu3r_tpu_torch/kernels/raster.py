@@ -1,12 +1,22 @@
-"""Tile-compositing kernel wrapper: ``csrc/raster.cu`` and its plain version.
+"""Tile-compositing kernels' wrappers: ``csrc/raster.cu`` (forward),
+``csrc/raster_bwd.cu`` (backward) and their plain versions.
 
-Replaces the TPU kernel ``_raster_kernel`` of ``siu3r_tpu/render/rasterizer.py``;
-launches are counted as ``raster``. Both versions composite each 16x128 tile
-of each view front to back over the tile's list from the binning and return
-the untiled image. The kernel stops a tile once every pixel's transmittance
-is at most 1e-4 (as the TPU kernel does); the plain version, like
-``_tiles_jnp``, composites every listed gaussian, so the two differ by the
-contributions below that transmittance.
+The forward replaces the TPU kernel ``_raster_kernel`` of
+``siu3r_tpu/render/rasterizer.py`` (launches counted as ``raster``), the
+backward ``_raster_bwd_kernel`` of the same file (counted as
+``raster_bwd``). Both versions composite each 16x128 tile of each view front
+to back over the tile's list from the binning and return the untiled image.
+The kernels stop a tile once every pixel's transmittance is at most 1e-4 (as
+the TPU kernels do); the plain versions, like ``_tiles_jnp`` and its VJP,
+composite every listed gaussian, so the two differ by the contributions below
+that transmittance.
+
+``raster`` is differentiable in ``params`` and ``colors`` (a
+``torch.autograd.Function``): on CUDA tensors its backward is the
+``raster_bwd`` kernel; on CPU tensors it is ``raster_backward_plain``, the VJP
+of the plain version (the counterpart of differentiating ``_tiles_jnp``).
+The table and counts carry no gradient: the binning is gradient-free, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +38,36 @@ from siu3r_tpu_torch.render.tiles import (
 )
 
 
+def _pixel_grid(row0: torch.Tensor, col0: torch.Tensor):
+    """Pixel coordinates [NT, 1, npix] of each tile and the strictly lower
+    triangle [CHUNK, CHUNK] of the exclusive cumulative sum."""
+    dev = row0.device
+    p = torch.arange(TILE_H * TILE_W, device=dev)
+    px = col0.to(torch.float32)[:, None, None] + (p % TILE_W).to(torch.float32)
+    py = row0.to(torch.float32)[:, None, None] + (p // TILE_W).to(torch.float32)
+    ar = torch.arange(_CHUNK, device=dev)
+    return px, py, (ar[None, :] < ar[:, None]).to(torch.float32)
+
+
+def _chunk(px, py, tril, counts, base, trans, prm, col):
+    """One chunk of ``_tiles_jnp``'s scan body: prm [NT, CHUNK, 8], col
+    [NT, CHUNK, C], trans [NT, 1, npix], counts [NT, 1, 1]. Returns the colour
+    and depth it adds ([NT, C, npix], [NT, 1, npix]) and the transmittance
+    after it."""
+    dx = px - prm[..., 0:1]  # [NT, CHUNK, npix]
+    dy = py - prm[..., 1:2]
+    power = -0.5 * (prm[..., 2:3] * dx * dx + prm[..., 4:5] * dy * dy) - prm[..., 3:4] * dx * dy
+    alpha = torch.clamp(prm[..., 5:6] * torch.exp(power), max=_ALPHA_MAX)
+    alpha = torch.where(alpha >= _ALPHA_MIN, alpha, torch.zeros_like(alpha))
+    k_ids = base + torch.arange(_CHUNK, device=prm.device)[None, :, None]
+    alpha = torch.where(k_ids < counts, alpha, torch.zeros_like(alpha))
+    logs = torch.log1p(-alpha)
+    wgt = alpha * trans * torch.exp(tril @ logs)
+    color = col.transpose(1, 2) @ wgt
+    depth = (prm[..., 6:7] * wgt).sum(dim=1, keepdim=True)
+    return color, depth, trans * torch.exp(logs.sum(dim=1, keepdim=True))
+
+
 def tiles_plain(
     counts: torch.Tensor,
     row0: torch.Tensor,
@@ -46,11 +86,7 @@ def tiles_plain(
         raise ValueError(f"the list length {k_cap} is not a multiple of {_CHUNK}")
     dev = params.device
     npix = TILE_H * TILE_W
-    p = torch.arange(npix, device=dev)
-    px = col0.to(torch.float32)[:, None, None] + (p % TILE_W).to(torch.float32)  # [NT, 1, npix]
-    py = row0.to(torch.float32)[:, None, None] + (p // TILE_W).to(torch.float32)
-    ar = torch.arange(_CHUNK, device=dev)
-    tril = (ar[None, :] < ar[:, None]).to(torch.float32)  # strictly lower: exclusive cumsum
+    px, py, tril = _pixel_grid(row0, col0)
     counts = counts.reshape(nt, 1, 1)
 
     trans = torch.ones((nt, 1, npix), dtype=torch.float32, device=dev)
@@ -60,27 +96,57 @@ def tiles_plain(
     for base in range(0, k_cap, _CHUNK):
         # the kernel's loop condition before this chunk (monotone: once false, it stays false)
         swept += ((base < counts.view(nt)) & (trans.amax(dim=(1, 2)) > _T_EPS)).to(torch.int32)
-        prm = params[:, base : base + _CHUNK]  # [NT, CHUNK, 8]
-        col = colors[:, base : base + _CHUNK]  # [NT, CHUNK, C]
-        dx = px - prm[..., 0:1]  # [NT, CHUNK, npix]
-        dy = py - prm[..., 1:2]
-        power = -0.5 * (prm[..., 2:3] * dx * dx + prm[..., 4:5] * dy * dy) - prm[..., 3:4] * dx * dy
-        alpha = torch.clamp(prm[..., 5:6] * torch.exp(power), max=_ALPHA_MAX)
-        alpha = torch.where(alpha >= _ALPHA_MIN, alpha, torch.zeros_like(alpha))
-        k_ids = base + ar[None, :, None]
-        alpha = torch.where(k_ids < counts, alpha, torch.zeros_like(alpha))
-        logs = torch.log1p(-alpha)
-        cum_excl = tril @ logs
-        wgt = alpha * trans * torch.exp(cum_excl)
-        color_acc = color_acc + col.transpose(1, 2) @ wgt  # [NT, C, npix]
-        depth_acc = depth_acc + (prm[..., 6:7] * wgt).sum(dim=1, keepdim=True)
-        trans = trans * torch.exp(logs.sum(dim=1, keepdim=True))
+        color, depth, trans = _chunk(px, py, tril, counts, base, trans,
+                                     params[:, base : base + _CHUNK], colors[:, base : base + _CHUNK])
+        color_acc = color_acc + color
+        depth_acc = depth_acc + depth
     return (
         color_acc.reshape(nt, n_channels, TILE_H, TILE_W),
         depth_acc.reshape(nt, TILE_H, TILE_W),
         (1.0 - trans).reshape(nt, TILE_H, TILE_W),
         swept,
     )
+
+
+def tiles_backward_plain(
+    counts: torch.Tensor,
+    row0: torch.Tensor,
+    col0: torch.Tensor,
+    params: torch.Tensor,
+    colors: torch.Tensor,
+    gcolor: torch.Tensor,
+    gdepth: torch.Tensor,
+    galpha: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of ``tiles_plain`` (the counterpart of differentiating
+    ``_tiles_jnp``): gcolor [NT, C, 16, 128], gdepth and galpha [NT, 16, 128]
+    are the cotangents of its outputs. Returns (dparams [NT, K, 8], dcolors
+    [NT, K, C]). As ``_tiles_jnp`` checkpoints its chunk body, the carried
+    transmittances are kept and each chunk is recomputed in the backward, so
+    the memory is that of one chunk."""
+    nt, k_cap, _ = params.shape
+    npix = TILE_H * TILE_W
+    px, py, tril = _pixel_grid(row0, col0)
+    counts = counts.reshape(nt, 1, 1)
+    params, colors = params.detach(), colors.detach()
+    trans_in = [torch.ones((nt, 1, npix), dtype=torch.float32, device=params.device)]
+    with torch.no_grad():
+        for base in range(0, k_cap - _CHUNK, _CHUNK):
+            trans_in.append(_chunk(px, py, tril, counts, base, trans_in[-1], params[:, base : base + _CHUNK],
+                                   colors[:, base : base + _CHUNK])[2])
+    g_color = gcolor.reshape(nt, -1, npix)
+    g_depth = gdepth.reshape(nt, 1, npix)
+    g_trans = -galpha.reshape(nt, 1, npix)  # alpha = 1 - T
+    dparams = torch.zeros_like(params)
+    dcolors = torch.zeros_like(colors)
+    for ci in reversed(range(k_cap // _CHUNK)):
+        sl = slice(ci * _CHUNK, (ci + 1) * _CHUNK)
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_(True) for x in (params[:, sl], colors[:, sl], trans_in[ci])]
+            outputs = _chunk(px, py, tril, counts, ci * _CHUNK, inputs[2], *inputs[:2])
+            dparams[:, sl], dcolors[:, sl], g_trans = torch.autograd.grad(
+                outputs, inputs, (g_color, g_depth, g_trans))
+    return dparams, dcolors
 
 
 def untile(x: torch.Tensor, n_views: int, image_size: Tuple[int, int]) -> torch.Tensor:
@@ -90,6 +156,17 @@ def untile(x: torch.Tensor, n_views: int, image_size: Tuple[int, int]) -> torch.
     c = x.shape[1]
     x = x.reshape(n_views, n_ty, n_tx, c, TILE_H, TILE_W).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(n_views, n_ty * TILE_H, n_tx * TILE_W, c)[:, :h, :w]
+
+
+def tile_image(x: torch.Tensor, image_size: Tuple[int, int]) -> torch.Tensor:
+    """The transpose of ``untile``: [N, H, W, C] -> [N*T, C, 16, 128], zero
+    past the image's edge."""
+    h, w = image_size
+    n_ty, n_tx = tile_grid(image_size)
+    n, c = x.shape[0], x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, 0, 0, n_tx * TILE_W - w, 0, n_ty * TILE_H - h))
+    x = x.reshape(n, n_ty, TILE_H, n_tx, TILE_W, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n * n_ty * n_tx, c, TILE_H, TILE_W)
 
 
 def _flatten(table, counts, params, colors):
@@ -109,16 +186,10 @@ def _flatten(table, counts, params, colors):
     return lead, table.reshape(n, t, k), counts.reshape(n, t), params.reshape(n, g, 8), cols
 
 
-def raster_plain(
-    table: torch.Tensor,
-    counts: torch.Tensor,
-    params: torch.Tensor,
-    colors: torch.Tensor,
-    image_size: Tuple[int, int],
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The wrapper's function in plain PyTorch: gather each tile's params and
-    colours through the table, then ``tiles_plain``, then untile."""
-    lead, table, counts, params, cols = _flatten(table, counts, params, colors)
+def _gather(table, counts, params, cols, image_size):
+    """Flattened inputs -> each tile's params [N*T, K, 8] and colours
+    [N*T, K, C] gathered through the table, with the gather indices and the
+    tiles' first rows and columns."""
     n, t, k = table.shape
     n_ty, n_tx = tile_grid(image_size)
     if t != n_ty * n_tx:
@@ -130,6 +201,21 @@ def raster_plain(
     tile_ids = torch.arange(t, dtype=torch.int32, device=table.device)
     row0 = ((tile_ids // n_tx) * TILE_H).repeat(n)
     col0 = ((tile_ids % n_tx) * TILE_W).repeat(n)
+    return idx, slab, gp, gc, row0, col0
+
+
+def raster_plain(
+    table: torch.Tensor,
+    counts: torch.Tensor,
+    params: torch.Tensor,
+    colors: torch.Tensor,
+    image_size: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The wrapper's function in plain PyTorch: gather each tile's params and
+    colours through the table, then ``tiles_plain``, then untile."""
+    lead, table, counts, params, cols = _flatten(table, counts, params, colors)
+    n, t, _ = table.shape
+    _, _, gp, gc, row0, col0 = _gather(table, counts, params, cols, image_size)
     color_t, depth_t, alpha_t, swept = tiles_plain(counts.reshape(-1), row0, col0, gp, gc)
     color = untile(color_t, n, image_size)
     depth = untile(depth_t[:, None], n, image_size)[..., 0]
@@ -141,26 +227,40 @@ def raster_plain(
     )
 
 
-def raster(
+def raster_backward_plain(
     table: torch.Tensor,
     counts: torch.Tensor,
     params: torch.Tensor,
     colors: torch.Tensor,
     image_size: Tuple[int, int],
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Composite every tile of every view.
+    gcolor: torch.Tensor,
+    gdepth: torch.Tensor,
+    galpha: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of ``raster_plain`` in params and colors: gcolor
+    [..., H, W, C], gdepth and galpha [..., H, W] -> (dparams shaped as
+    params, dcolors shaped as colors). ``tiles_backward_plain`` on the
+    gathered tiles, then each slot's gradient added to its gaussian."""
+    lead, table, counts, params_f, cols = _flatten(table, counts, params, colors)
+    n, t, k = table.shape
+    idx, slab, gp, gc, row0, col0 = _gather(table, counts, params_f, cols, image_size)
+    dgp, dgc = tiles_backward_plain(
+        counts.reshape(-1), row0, col0, gp, gc,
+        tile_image(gcolor.reshape(n, *image_size, -1), image_size),
+        tile_image(gdepth.reshape(n, *image_size, 1), image_size),
+        tile_image(galpha.reshape(n, *image_size, 1), image_size),
+    )
+    g = params_f.shape[1]
+    dparams = torch.zeros_like(params_f).scatter_add_(1, idx[..., None].expand(-1, -1, 8), dgp.reshape(n, t * k, 8))
+    c = cols.shape[-1]
+    flat = (slab[:, None] * g + idx).reshape(-1)
+    dcolors = cols.new_zeros(cols.shape[0] * g, c).index_add_(0, flat, dgc.reshape(-1, c))
+    return dparams.reshape(params.shape), dcolors.reshape(colors.shape)
 
-    table [..., T, K] and counts [..., T] int32 from ``bin_gaussians``
-    (K a multiple of 128); params [..., G, 8] fp32; colors [M, G, C] fp32
-    (any leading shape that flattens to M colour sets; a non-unit channel
-    stride is copied to unit stride), view n using set n // (views / M).
-    Returns color [..., H, W, C], depth and alpha [..., H, W] and the chunks
-    swept per tile [..., T] int32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel, all
-    views in one launch."""
+
+def _checked(table, counts, params, colors, image_size):
+    """The CUDA kernels' inputs, flattened and checked."""
     dev = table.device
-    if dev.type == "cpu":
-        return raster_plain(table, counts, params, colors, image_size)
     if dev.type != "cuda":
         raise ValueError(f"raster runs on cuda or cpu tensors, got {dev}")
     lead, table, counts, params, cols = _flatten(table, counts, params, colors)
@@ -176,8 +276,17 @@ def raster(
             raise ValueError(f"{name} must be contiguous {dtype} on {dev}")
     if cols.device != dev or cols.dtype != torch.float32:
         raise ValueError(f"colors must be fp32 on {dev}")
-    if cols.stride(-1) != 1:  # the kernel reads a gaussian's channels as one row
+    if cols.stride(-1) != 1:  # the kernels read a gaussian's channels as one row
         cols = cols.contiguous()
+    return lead, table, counts, params, cols
+
+
+def _raster_cuda(table, counts, params, colors, image_size):
+    lead, table, counts, params, cols = _checked(table, counts, params, colors, image_size)
+    dev = table.device
+    n, t, k = table.shape
+    g, c = cols.shape[1:]
+    n_ty, n_tx = tile_grid(image_size)
     h, w = image_size
     color = torch.empty((n, h, w, c), dtype=torch.float32, device=dev)
     depth = torch.empty((n, h, w), dtype=torch.float32, device=dev)
@@ -196,3 +305,94 @@ def raster(
         color.reshape(*lead, h, w, c), depth.reshape(*lead, h, w),
         alpha.reshape(*lead, h, w), swept.reshape(*lead, t),
     )
+
+
+def raster_backward(
+    table: torch.Tensor,
+    counts: torch.Tensor,
+    params: torch.Tensor,
+    colors: torch.Tensor,
+    image_size: Tuple[int, int],
+    gcolor: torch.Tensor,
+    gdepth: torch.Tensor,
+    galpha: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of ``raster``'s color, depth and alpha in params and colors,
+    from their cotangents gcolor [..., H, W, C], gdepth and galpha [..., H, W].
+    Returns (dparams shaped as params, dcolors shaped as colors), summed over
+    every tile that lists a gaussian. CPU tensors take the plain version; CUDA
+    tensors launch the ``raster_bwd`` kernel, all views in one launch."""
+    if table.device.type == "cpu":
+        return raster_backward_plain(table, counts, params, colors, image_size, gcolor, gdepth, galpha)
+    _, table_f, counts_f, params_f, cols = _checked(table, counts, params, colors, image_size)
+    dev = table.device
+    n, _, k = table_f.shape
+    g, c = cols.shape[1:]
+    n_ty, n_tx = tile_grid(image_size)
+    h, w = image_size
+    grads = []
+    for name, x, shape in (("gcolor", gcolor, (n, h, w, c)), ("gdepth", gdepth, (n, h, w)),
+                           ("galpha", galpha, (n, h, w))):
+        if x.device != dev or x.dtype != torch.float32 or x.numel() != math.prod(shape):
+            raise ValueError(f"{name} must be fp32 on {dev} with {math.prod(shape)} elements")
+        grads.append(x.reshape(shape).contiguous())
+    dparams = torch.zeros((n, g, 8), dtype=torch.float32, device=dev)
+    dcolors = torch.zeros((cols.shape[0], g, c), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    err = lib.siu3r_raster_bwd(
+        table_f.data_ptr(), counts_f.data_ptr(), params_f.data_ptr(), cols.data_ptr(),
+        *(x.data_ptr() for x in grads), dparams.data_ptr(), dcolors.data_ptr(),
+        n, n_ty, n_tx, k, g, h, w, c, n // cols.shape[0], cols.stride(0), cols.stride(1),
+        _build.stream_handle(dev),
+    )
+    _build.check_launch(err, "raster_bwd")
+    _build.launch_counts["raster_bwd"] += 1
+    return dparams.reshape(params.shape), dcolors.reshape(colors.shape)
+
+
+def _raster_forward(table, counts, params, colors, image_size):
+    if table.device.type == "cpu":
+        return raster_plain(table, counts, params, colors, image_size)
+    return _raster_cuda(table, counts, params, colors, image_size)
+
+
+class _Raster(torch.autograd.Function):
+    """``raster`` with its backward: the kernels on CUDA tensors, the plain
+    versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, table, counts, params, colors, image_size):
+        out = _raster_forward(table, counts, params, colors, image_size)
+        ctx.save_for_backward(table, counts, params, colors)
+        ctx.image_size = image_size
+        ctx.mark_non_differentiable(out[3])
+        return out
+
+    @staticmethod
+    def backward(ctx, gcolor, gdepth, galpha, _gswept):
+        table, counts, params, colors = ctx.saved_tensors
+        dparams, dcolors = raster_backward(table, counts, params, colors, ctx.image_size, gcolor, gdepth, galpha)
+        need = ctx.needs_input_grad
+        return None, None, dparams if need[2] else None, dcolors if need[3] else None, None
+
+
+def raster(
+    table: torch.Tensor,
+    counts: torch.Tensor,
+    params: torch.Tensor,
+    colors: torch.Tensor,
+    image_size: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Composite every tile of every view.
+
+    table [..., T, K] and counts [..., T] int32 from ``bin_gaussians``
+    (K a multiple of 128); params [..., G, 8] fp32; colors [M, G, C] fp32
+    (any leading shape that flattens to M colour sets; a non-unit channel
+    stride is copied to unit stride), view n using set n // (views / M).
+    Returns color [..., H, W, C], depth and alpha [..., H, W] and the chunks
+    swept per tile [..., T] int32. Differentiable in params and colors.
+    CPU tensors take the plain versions; CUDA tensors launch the kernels, all
+    views in one launch."""
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"raster runs on cuda or cpu tensors, got {table.device}")
+    return _Raster.apply(table, counts, params, colors, image_size)

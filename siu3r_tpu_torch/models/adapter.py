@@ -3,9 +3,18 @@
 A conv spatial prior (SPM) gives a 1/8, 1/16, 1/32 token pyramid; at the ViT
 blocks ``interaction_indexes`` a deformable-attention Extractor pulls ViT
 features into it (ConvFFN with a depthwise conv after each); a transposed conv
-brings the 1/8 level to 1/4; BatchNorm (eval mode) closes each level.
+brings the 1/8 level to 1/4; BatchNorm closes each level.
 Convolutions run NCHW inside the modules; the public boundary is NHWC, as in
 the JAX package.
+
+BatchNorm follows flax's ``nn.BatchNorm`` (the JAX package's): in eval mode
+it normalises with the running statistics; in train mode (``module.train()``)
+with the batch's mean and *biased* variance E[x^2] - E[x]^2 (clipped at 0),
+differentiated through, and it updates the running statistics with the same
+biased variance at momentum 0.1 (``nn.BatchNorm2d`` would store the unbiased
+one). The statistics are those of this device's batch, as the JAX package's
+single-device step computes them (the reference's SyncBN waits for the
+data-parallel slice).
 """
 
 from __future__ import annotations
@@ -21,7 +30,25 @@ from siu3r_tpu_torch.kernels.msda import msda
 from siu3r_tpu_torch.ops.deformable import reference_points_for_shapes
 
 LayerNorm6 = partial(nn.LayerNorm, eps=1e-6)
-BatchNorm = partial(nn.BatchNorm2d, eps=1e-5, momentum=0.1)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d over NCHW with flax's train-mode statistics (see the
+    module docstring); the parameter and buffer names are torch's."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 def _conv_bn_relu(cin: int, cout: int, stride: int) -> List[nn.Module]:

@@ -1,12 +1,16 @@
-"""Multi-scale deformable attention, plain PyTorch (gather form).
+"""Bilinear point sampling and multi-scale deformable attention, plain
+PyTorch, counterpart of ``siu3r_tpu/ops/deformable.py``.
 
-Counterpart of ``siu3r_tpu/ops/deformable.py``
-(``multi_scale_deformable_attention`` / ``grid_sample_bilinear``): bilinear
-sampling with zero padding and ``align_corners=False`` semantics, the sample
-point of a location ``x`` in [0, 1] on a level of width W being
-``x * W - 0.5``. This is the plain version that ``kernels/msda.py`` holds its
-CUDA kernel against; the one-hot matrix product of the JAX default path is a
-TPU formulation of the same function and is not carried over.
+Bilinear sampling with zero padding and ``align_corners=False`` semantics,
+the sample point of a location ``x`` in [0, 1] on a level of width W being
+``x * W - 0.5``. ``multi_scale_deformable_attention`` (gather form) is the
+plain version that ``kernels/msda.py`` holds its CUDA kernel against; the
+one-hot matrix product of the JAX default path is a TPU formulation of the
+same function and is not carried over. ``grid_sample_bilinear`` is the
+criterion's and the matcher's point sampler, in fp32 throughout (the JAX
+package's separable one-hot form, ``grid_sample_separable``, is again the
+same function laid out for the TPU's matrix unit, and it samples the binary
+ground-truth masks with bf16 products; neither choice is carried over).
 """
 
 from __future__ import annotations
@@ -14,6 +18,16 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+
+
+def grid_sample_bilinear(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.functional.grid_sample(mode="bilinear", padding_mode="zeros",
+    align_corners=False)`` for flattened sample points: img [B, H, W, C];
+    grid [B, P, 2] normalised (x, y) in [-1, 1]. Returns [B, P, C]."""
+    b, h, w, c = img.shape
+    gx = (grid[..., 0] + 1.0) * w / 2.0 - 0.5
+    gy = (grid[..., 1] + 1.0) * h / 2.0 - 0.5
+    return _sample_level(img.reshape(b, h * w, c), gx, gy, h, w)
 
 
 def _sample_level(

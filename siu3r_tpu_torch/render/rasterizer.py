@@ -7,7 +7,10 @@ parts of ``siu3r_tpu/render/rasterizer.py``.
    static slot grid, covers it;
 3. compositing (``kernels/raster.py``): each tile front to back over its
    list, with the whole-tile exit at transmittance 1e-4. Outputs colour,
-   expected depth and alpha.
+   expected depth and alpha, differentiable in the projected params and the
+   colours (the backward is the ``raster_bwd`` kernel on CUDA), so gradients
+   reach the means, covariances, opacities and colours through the
+   projection; the binning carries none.
 
 Every view of every scene is flattened into one batch dimension, so a
 render makes one binning launch and one raster launch per channel set,
@@ -79,7 +82,12 @@ def rasterize_multi(
         means.unsqueeze(-3), covariances.unsqueeze(-4), viewmats, intrinsics_px,
         image_size, near, far,
     )  # [..., V, G]
-    table, counts = bin_gaussians(proj, image_size, max_per_tile, min(SLOTS_Y, n_ty), min(SLOTS_X, n_tx))
+    # the binning is gradient-free, as in the JAX package: its table and
+    # counts are integers
+    table, counts = bin_gaussians(
+        ProjectedGaussians(*(x.detach() for x in proj)), image_size, max_per_tile,
+        min(SLOTS_Y, n_ty), min(SLOTS_X, n_tx),
+    )
     params = pack_params(proj, opacities.unsqueeze(-2))
 
     outs = []

@@ -1,4 +1,4 @@
-"""Gaussian scene renderer, forward only: counterpart of ``siu3r_tpu/renderer.py``.
+"""Gaussian scene renderer: counterpart of ``siu3r_tpu/renderer.py``.
 
   * the scene is rescaled by 1/near = 10 before rendering (translations,
     means, covariances; near becomes 1, far 1000), and depth is returned in
@@ -13,6 +13,13 @@
 Every batch item's views are flattened into one batch of views, so one render
 is one binning launch and one raster launch per channel set. The
 camera inverse is ``torch.linalg.inv_ex``, which does not wait for the device.
+
+The renders are differentiable in the Gaussians' means, covariances,
+opacities and harmonics (and the pose deltas). The compositing's backward is
+a kernel on CUDA (``raster_bwd``, the port of the TPU's
+``_raster_bwd_kernel``); the projection, the SH colours and the scene
+rescale are plain tensor code that autograd differentiates, as XLA does in
+the JAX package.
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ names, the names the port's modules carry. It is the exact inverse of
   ``mean``/``var`` -> ``running_mean``/``running_var``;
 * separate q/k/v Dense -> packed ``in_proj_weight``/``in_proj_bias``.
 
+The BatchNorm statistics (flax ``batch_stats``) become the BatchNorm
+buffers. ``lpips_params_from_jax`` carries the LPIPS network's parameters.
 A reference Lightning ``.ckpt`` loads into the port through
 ``load_checkpoint``, which strips the pipeline's ``model.`` prefix.
 """
@@ -238,3 +240,19 @@ def load_checkpoint(model: torch.nn.Module, path: str, prefix: str = "model.") -
     state = {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in state.items()}
     own = model.state_dict()
     model.load_state_dict({k: v for k, v in state.items() if k in own}, strict=True)
+
+
+def lpips_params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The JAX package's LPIPS parameters (``init_lpips_params``, numpy
+    leaves: conv kernels [3, 3, I, O], linear heads [C, 1]) -> the port's
+    (``train/lpips.py``: conv weights [O, I, 3, 3], heads [C])."""
+    from siu3r_tpu_torch.train.lpips import with_scaling
+
+    return with_scaling({
+        "convs": [
+            (_t(np.asarray(c["kernel"]).transpose(3, 2, 0, 1)).to(device), _t(c["bias"]).to(device))
+            for c in params["convs"]
+        ],
+        "lins": [_t(np.asarray(lin)[:, 0]).to(device) for lin in params["lins"]],
+        "pretrained": bool(params["pretrained"]),
+    })

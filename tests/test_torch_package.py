@@ -13,7 +13,7 @@ from siu3r_tpu_torch.device import resolve_device
 from siu3r_tpu_torch.kernels.flash_attention import flash_attn
 from siu3r_tpu_torch.kernels.binning import bin_gaussians
 from siu3r_tpu_torch.kernels.msda import msda
-from siu3r_tpu_torch.kernels.raster import raster
+from siu3r_tpu_torch.kernels.raster import raster, raster_backward
 from siu3r_tpu_torch.render.projection import ProjectedGaussians
 from siu3r_tpu_torch.cli import inference
 from siu3r_tpu_torch.models.model import SIU3RModel, build_model
@@ -28,7 +28,8 @@ def test_package_imports_no_jax():
     )
     modules = [m.removesuffix(".__init__") for m in modules]
     for m in ("render.projection", "render.rasterizer", "renderer", "pipeline", "cli.viewer",
-              "kernels.binning", "kernels.raster", "ops.sh"):
+              "kernels.binning", "kernels.raster", "ops.sh", "ops.lap", "train.losses", "train.matcher",
+              "train.lpips", "train.optimizer", "checkpoint_io"):
         assert "siu3r_tpu_torch." + m in modules
     code = (
         "import importlib, sys\n"
@@ -82,3 +83,8 @@ def test_kernel_wrappers_refuse_other_devices():
     table = torch.empty((1, 1, 128), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         raster(table, table[..., 0], torch.empty((1, 8, 8), device="meta"), torch.empty((8, 3), device="meta"), (16, 128))
+    image = torch.empty((1, 16, 128), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        raster_backward(table, table[..., 0], torch.empty((1, 8, 8), device="meta"),
+                        torch.empty((8, 3), device="meta"), (16, 128), image[..., None].expand(-1, -1, -1, 3),
+                        image, image)
