@@ -5,9 +5,12 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. environment: versions, the card's name and power limit, TF32 off;
   2. build: nvcc builds the CUDA kernels from siu3r_tpu_torch/csrc;
-  3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes and at edge cases, with times, bounds and, for attention,
-     one PyTorch call computing the same function as a yardstick; the
+  3. kernels: the attention kernel's registers (ptxas) and, in its SASS,
+     tensor-core TF32 products and asynchronous copies; each kernel against
+     its plain PyTorch version at the main path's shapes and at edge cases,
+     with times, bounds (attention at the 3xTF32 tensor-core rate, with the
+     fp32 figure beside it), blocks per launch and, for attention, one
+     PyTorch call computing the same function as a yardstick; the
      binning and raster kernels on a synthetic scene at the eval shapes
      (6 views x 32 tiles, K = 4096, C = 3 and 16) and at edge cases; the
      raster backward (kernel 6) against the plain VJP at the training shapes
@@ -72,6 +75,10 @@ SLOTS = (SLOTS_Y, SLOTS_X)  # the rasterizer's slot grid; 256x256 has 16 x 2 til
 # H100 SXM peaks (NVIDIA data sheet) at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# dense TF32 on the tensor cores; the attention kernel's 3xTF32 takes three
+# products for each fp32 product
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 # int32 ALU: 64 lanes per SM, half the fp32 lanes, and one operation a lane
 # and cycle where the fp32 peak counts an FMA as two (Hopper architecture
 # white paper): 132 SMs x 64 x 1.98 GHz
@@ -143,10 +150,12 @@ def time_ms(fn, iters: int, part: str | None = None) -> tuple[float, float, floa
     raise RuntimeError("the profiler recorded no device time")
 
 
+def larger(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def bound(nbytes: float, flops: float, peak_ops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return larger(nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_ops * 1e3)
 
 
 # ---------------------------------------------------------------- phase 1, 2
@@ -210,22 +219,39 @@ def _attn_inputs(case, gen, cross: bool):
         kv_mask = torch.rand(b, nk, device=dev, generator=gen) > 0.5
         kv_mask[0] = False
         kv_mask[0, nk // 2] = True
+    elif mask_kind == "first_tile_masked":  # the kernel's first 64-key tile wholly masked, later keys live
+        kv_mask = torch.rand(b, nk, device=dev, generator=gen) > 0.5
+        kv_mask[:, :64] = False
+        kv_mask[:, 64] = True
     return q, k, v, qrope, krope, kv_mask
 
 
-def _attn_cost(case) -> tuple[float, float]:
+def _attn_cost(case) -> tuple[float, float, float]:
+    """Bytes (q, k, v, the tables and the mask in; out), the two products'
+    flops and the rotation's."""
     b, h, nq, nk, d, rope, mask_kind = case
-    nbytes = 4 * b * h * d * (2 * nq + 2 * nk)  # q, k, v in; out
+    nbytes = 4 * b * h * d * (2 * nq + 2 * nk)
     if rope:
         nbytes += 4 * 2 * b * d * (nq + nk)  # cos/sin tables
     if mask_kind:
         nbytes += b * nk
-    flops = 4 * b * h * nq * nk * d + (6 * b * h * (nq + nk) * d if rope else 0)
-    return nbytes, flops
+    return nbytes, 4 * b * h * nq * nk * d, 6 * b * h * (nq + nk) * d if rope else 0
+
+
+def _attn_bound(case) -> dict:
+    """The least time for the function, the products at the 3xTF32 tensor-core
+    rate (what the kernel's arithmetic needs) and the rotation at the fp32
+    rate; beside it the same with the products at the fp32 rate."""
+    nbytes, products, rotation = _attn_cost(case)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (products / PEAK_3XTF32_FLOPS + rotation / PEAK_FP32_FLOPS) * 1e3
+    b_ms, b_by = larger(bytes_ms, ops_ms)
+    return dict(bound_ms=b_ms, bound_by=b_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_fp32_ms=bound(nbytes, products + rotation)[0])
 
 
 def check_attention(name, case, iters, gen, cross=False):
-    from siu3r_tpu_torch.kernels.flash_attention import flash_attn, flash_attn_plain
+    from siu3r_tpu_torch.kernels.flash_attention import flash_attn, flash_attn_plain, launch_config
     from siu3r_tpu_torch.ops.rope import rope2d_from_cos_sin
 
     q, k, v, qrope, krope, kv_mask = _attn_inputs(case, gen, cross)
@@ -245,13 +271,13 @@ def check_attention(name, case, iters, gen, cross=False):
         qr = rope2d_from_cos_sin(q, *qrope) if qrope is not None else q
         kr = rope2d_from_cos_sin(k, *krope) if krope is not None else k
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters)[0]
-    nbytes, flops = _attn_cost(case)
-    b_ms, b_by = bound(nbytes, flops)
+    bnd = _attn_bound(case)
+    blocks, threads, smem = launch_config(*case[:3], case[4], case[5])
     log("kernel", f"{name} {case[:5]} rope={case[5]} mask={case[6]}: max_abs_err {err:.3g} "
                   f"ms {ms:.5f} (elapsed {elapsed:.5f}) plain_ms {plain_ms:.5f} library_ms {lib_ms} "
-                  f"bound_ms {b_ms:.5f} ({b_by})")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                nbytes=nbytes, flops=flops)
+                  f"bound_ms {bnd['bound_ms']:.5f} ({bnd['bound_by']}, 3xTF32; fp32 SIMT "
+                  f"{bnd['bound_fp32_ms']:.5f}); {blocks} blocks of {threads} threads, {smem} B shared")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, blocks=blocks, **bnd)
 
 
 def _msda_inputs(case, gen):
@@ -304,12 +330,13 @@ def check_msda(name, case, iters, gen):
     ms, elapsed, _ = time_ms(kern, iters)
     plain_ms = time_ms(plain, max(3, iters // 4))[0]
     nbytes, flops = _msda_cost(case, loc)
-    b_ms, b_by = bound(nbytes, flops)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    b_ms, b_by = larger(bytes_ms, ops_ms)
     log("kernel", f"msda {name} B={case[0]} Lq={case[1]} H={case[2]} D={case[3]} P={case[4]} "
                   f"levels={shapes}: max_abs_err {err:.3g} ms {ms:.5f} (elapsed {elapsed:.5f}) "
                   f"plain_ms {plain_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                nbytes=nbytes, flops=flops)
+                bytes_ms=bytes_ms, ops_ms=ops_ms)
 
 
 # (B, H, Nq, Nk, D, rope, mask), the kernel, the calls one forward makes at
@@ -325,6 +352,16 @@ ATTN_EDGE = {
     "one_key": (2, 3, 70, 1, 32, False, None),
     "one_live_key_row": (2, 4, 65, 130, 32, False, "one_live_key"),
     "one_query_d64": (1, 2, 1, 300, 64, False, None),
+    # the kernel's tiling: key tails of 8, 9, 63 and 65 (8-key column tiles,
+    # 64-key shared-memory tiles), a 17-row query set (one full 16-row warp
+    # tile and one row), a first key tile wholly masked with later keys live
+    "nk8_rope": (1, 4, 33, 8, 64, True, None),
+    "nk9": (2, 2, 40, 9, 32, False, None),
+    "nk63": (1, 3, 20, 63, 64, False, None),
+    "nk65_rope": (1, 3, 70, 65, 32, True, None),
+    "nq17_d32_rope": (2, 4, 17, 100, 32, True, None),
+    "first_tile_masked": (2, 4, 65, 200, 32, False, "first_tile_masked"),
+    "first_tile_masked_rope": (2, 3, 40, 130, 64, True, "first_tile_masked"),
 }
 # (B, Lq, H, D, P, levels, loc lo, loc hi, integer points)
 MSDA_MAIN = {
@@ -338,19 +375,50 @@ MSDA_EDGE = {
 }
 
 
+ATTN_KERNEL = "flash_attn_fwd_kernel"
+
+
+def check_attention_build() -> None:
+    """The attention kernel's instantiations in the built library: ptxas'
+    registers, stack and spills from ``build.log``, and in their SASS the
+    tensor-core TF32 products (HMMA ... TF32, or HGMMA) and the asynchronous
+    copies (LDGSTS, or UTMALDG); fails where either is missing."""
+    from siu3r_tpu_torch.kernels import _build
+
+    lines = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and ATTN_KERNEL in line:
+            props = [x.strip().removeprefix("ptxas info    : ") for x in lines[i + 1:i + 4]
+                     if "registers" in x or "stack frame" in x]
+            log("kernels", f"ptxas {line.split(chr(39))[1][:70]}: {'; '.join(props)}")
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    functions = [f for f in sass.split("Function : ")[1:] if f.startswith("_Z") and ATTN_KERNEL in f.split()[0]]
+    if not functions:
+        raise AssertionError(f"cuobjdump -sass shows no {ATTN_KERNEL} in the library")
+    for f in functions:
+        body = f.splitlines()
+        mma = sum(("HMMA" in x and "TF32" in x) or "HGMMA" in x for x in body)
+        copies = sum("LDGSTS" in x or "UTMALDG" in x for x in body)
+        log("kernels", f"SASS {body[0][:70]}: {mma} tensor-core TF32 instructions, {copies} async copies")
+        if not mma or not copies:
+            raise AssertionError(f"{body[0]}: no tensor-core TF32 product ({mma}) or async copy ({copies}) in the SASS")
+
+
 def phase_kernels() -> dict:
+    check_attention_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    per_kernel = {
-        "flash_attn_rope": dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, nbytes=0.0, flops=0.0),
-        "flash_attn": dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, nbytes=0.0, flops=0.0),
-        "msda": dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0, nbytes=0.0, flops=0.0),
-    }
+    zero = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    per_kernel = {"flash_attn_rope": dict(zero, bound_fp32_ms=0.0), "flash_attn": dict(zero, bound_fp32_ms=0.0),
+                  "msda": dict(zero, library_ms=None)}
 
     def add(kernel, res, calls):
         acc = per_kernel[kernel]
         acc["err"] = max(acc["err"], res["err"])
-        for key in ("ms", "plain_ms", "bound_ms", "nbytes", "flops"):
-            acc[key] += calls * res[key]
+        for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "bound_fp32_ms"):
+            if key in acc:
+                acc[key] += calls * res[key]
         if acc["library_ms"] is not None:
             acc["library_ms"] += calls * res["library_ms"]
 
@@ -365,9 +433,12 @@ def phase_kernels() -> dict:
     for name, case in MSDA_EDGE.items():
         per_kernel["msda"]["err"] = max(per_kernel["msda"]["err"], check_msda(name, case, 20, gen)["err"])
     for kernel, acc in per_kernel.items():
-        acc["bound_by"] = bound(acc["nbytes"], acc["flops"])[1]
+        acc["bound_by"] = larger(acc["bytes_ms"], acc["ops_ms"])[1]
     log("kernels", "all kernels agree with their plain versions "
-                   f"(attention atol {ATTN_ATOL}, msda atol {MSDA_ATOL}); per-forward times follow")
+                   f"(attention atol {ATTN_ATOL}, msda atol {MSDA_ATOL}); per forward: "
+                   + ", ".join(f"{k} ms {a['ms']:.5f} bound_ms {a['bound_ms']:.5f}"
+                               + (f" (fp32 SIMT {a['bound_fp32_ms']:.5f})" if "bound_fp32_ms" in a else "")
+                               + f" library_ms {a['library_ms']}" for k, a in per_kernel.items()))
     return per_kernel
 
 

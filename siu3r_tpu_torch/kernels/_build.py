@@ -40,6 +40,7 @@ _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _SIGNATURES = {
     "siu3r_flash_attn_fwd": [_vp] * 9 + [_i] * 5 + [_ll] * 9 + [ctypes.c_float, _vp],
+    "siu3r_flash_attn_launch_config": [_i] * 5 + [ctypes.POINTER(_i)] * 3,
     "siu3r_msda_fwd": [_vp] * 6 + [_i] * 7 + [_vp],
     "siu3r_bin_gaussians": [_vp] * 4 + [_i] * 5 + [_vp],
     "siu3r_raster_fwd": [_vp] * 8 + [_i] * 9 + [_ll] * 2 + [_vp],

@@ -4,7 +4,12 @@ One templated CUDA kernel replaces the two TPU kernels of
 ``siu3r_tpu/ops/flash_attention.py``: with RoPE tables it is the fused
 RoPE2D attention (``_attn_rope_kernel``, launches counted as
 ``flash_attn_rope``), without them the plain attention with an optional
-per-batch key mask (``_attn_kernel``, counted as ``flash_attn``).
+per-batch key mask (``_attn_kernel``, counted as ``flash_attn``). Its two
+products run on the tensor cores in 3xTF32 (each fp32 operand split into two
+TF32 parts, three products), which keeps fp32-level accuracy whatever
+``torch.backends`` says about TF32: those switches govern cuBLAS and cuDNN
+only. K and V reach shared memory by 16-byte asynchronous copies, so every
+row of q, k and v must start on a 16-byte boundary (``_check``).
 
 ``flash_attn`` is differentiable (a ``torch.autograd.Function``). Its forward
 is the kernel on CUDA tensors and the plain version on CPU tensors. Its
@@ -17,6 +22,7 @@ kernel to port here.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -60,18 +66,35 @@ def _check(q, k, v, qrope, krope, kv_mask) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.float32 or t.stride(-1) != 1:
             raise ValueError(f"{name} must be fp32 on {q.device} with unit stride on D")
+        # the kernel copies rows in 16-byte pieces
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+        if any(stride % 4 != 0 for stride, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"{name}'s batch, head and row strides must be multiples of 4 elements, "
+                             f"got {t.stride()[:3]}")
     if (qrope is None) != (krope is None):
         raise ValueError("qrope and krope go together")
     if qrope is not None:
         for t, n in ((qrope[0], nq), (qrope[1], nq), (krope[0], nk), (krope[1], nk)):
             if (t.shape != (b, n, d) or t.dtype != torch.float32
-                    or t.device != q.device or not t.is_contiguous()):
-                raise ValueError("RoPE tables must be contiguous fp32 [B, N, D] on q's device")
+                    or t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16 != 0):
+                raise ValueError("RoPE tables must be contiguous fp32 [B, N, D] on q's device, "
+                                 "on a 16-byte boundary")
     if kv_mask is not None and (
         kv_mask.shape != (b, nk) or kv_mask.dtype != torch.bool
         or kv_mask.device != q.device or not kv_mask.is_contiguous()
     ):
         raise ValueError("kv_mask must be a contiguous bool [B, Nk] on q's device")
+
+
+def launch_config(b: int, h: int, nq: int, d: int, rope: bool) -> tuple[int, int, int]:
+    """The kernel's launch at these sizes: (blocks, threads a block, dynamic
+    shared memory bytes a block). Needs the built library."""
+    lib = _build.load_library()
+    out = [ctypes.c_int() for _ in range(3)]
+    err = lib.siu3r_flash_attn_launch_config(b, h, nq, d, int(rope), *(ctypes.byref(x) for x in out))
+    _build.check_launch(err, "flash_attn launch_config")
+    return tuple(x.value for x in out)
 
 
 def _flash_attn_forward(q, k, v, scale, qrope, krope, kv_mask) -> torch.Tensor:
@@ -136,11 +159,13 @@ def flash_attn(
 ) -> torch.Tensor:
     """softmax(rot(q) rot(k)^T * scale) v.
 
-    q [B, H, Nq, D], k/v [B, H, Nk, D] fp32, D in (32, 64), any strides with
-    unit stride on D. qrope/krope: (cos, sin) tables [B, N, D] from
-    ``rope2d_cos_sin``, or None for no rotation. kv_mask: [B, Nk] bool, True =
-    attendable. Returns [B, H, Nq, D] contiguous, differentiable in q, k, v.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    q [B, H, Nq, D], k/v [B, H, Nk, D] fp32, D in (32, 64), unit stride on
+    D; on CUDA, 16-byte-aligned with batch, head and row strides that are
+    multiples of 4 elements (every layout the model makes). qrope/krope:
+    (cos, sin) tables [B, N, D] from ``rope2d_cos_sin``, or None for no
+    rotation. kv_mask: [B, Nk] bool, True = attendable. Returns [B, H, Nq,
+    D] contiguous, differentiable in q, k, v. CPU tensors take the plain
+    version; CUDA tensors launch the kernel.
     """
     if (qrope is None) != (krope is None):
         raise ValueError("qrope and krope go together")
