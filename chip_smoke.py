@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      its plain PyTorch version at the main path's shapes and at edge cases,
      with times, bounds (attention at the 3xTF32 tensor-core rate, with the
      fp32 figure beside it), blocks per launch and, for attention, one
-     PyTorch call computing the same function as a yardstick; the
-     binning and raster kernels on a synthetic scene at the eval shapes
+     PyTorch call computing the same function as a yardstick; the raster
+     kernels' registers (ptxas) and launch configuration (more than one
+     block a 16x128 tile, the forward's blocks a cluster of more than one);
+     the binning and raster kernels on a synthetic scene at the eval shapes
      (6 views x 32 tiles, K = 4096, C = 3 and 16) and at edge cases; the
      raster backward (kernel 6) against the plain VJP at the training shapes
      (4 views x 32 tiles, K = 4096, C = 3) and at edge cases; the autograd
@@ -36,7 +38,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      trained parts moved, then timed with its host syncs, each timed step's
      target cameras framing the Gaussians it renders (every step covered and
      sweeping at least 4 chunks per live tile); the raster kernels held
-     against their plain versions on a step's own inputs;
+     against their plain versions on a step's own inputs, timed side by
+     side, with how the kept pairs spread over the tiles and sub-tiles;
   7. CLI: two synthetic images through ``python -m siu3r_tpu_torch.cli.inference``
      (its own process, under its own settings) to ``output.ply``, read back and
      checked against the reference schema and this process's forward; then
@@ -378,6 +381,23 @@ MSDA_EDGE = {
 ATTN_KERNEL = "flash_attn_fwd_kernel"
 
 
+def log_ptxas(phase: str, kernel: str) -> None:
+    """ptxas' registers, stack and spills of each instantiation of
+    ``kernel`` (a substring of its mangled name), from ``build.log``."""
+    from siu3r_tpu_torch.kernels import _build
+
+    lines = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    found = 0
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            props = [x.strip().removeprefix("ptxas info    : ") for x in lines[i + 1:i + 4]
+                     if "registers" in x or "stack frame" in x]
+            log(phase, f"ptxas {line.split(chr(39))[1][:70]}: {'; '.join(props)}")
+            found += 1
+    if not found:
+        raise AssertionError(f"build.log holds no ptxas report of {kernel}")
+
+
 def check_attention_build() -> None:
     """The attention kernel's instantiations in the built library: ptxas'
     registers, stack and spills from ``build.log``, and in their SASS the
@@ -385,12 +405,7 @@ def check_attention_build() -> None:
     copies (LDGSTS, or UTMALDG); fails where either is missing."""
     from siu3r_tpu_torch.kernels import _build
 
-    lines = (_build.BUILD_DIR / "build.log").read_text().splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and ATTN_KERNEL in line:
-            props = [x.strip().removeprefix("ptxas info    : ") for x in lines[i + 1:i + 4]
-                     if "registers" in x or "stack frame" in x]
-            log("kernels", f"ptxas {line.split(chr(39))[1][:70]}: {'; '.join(props)}")
+    log_ptxas("kernels", ATTN_KERNEL)
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True).stdout
@@ -498,9 +513,30 @@ def check_bin(name, proj, k, iters) -> dict:
     return res
 
 
-def _raster_work(table, counts, params, swept) -> tuple[float, float]:
-    """(pairs, kept): the (gaussian, pixel) pairs the kernel composites before
-    each tile's exit, and those whose alpha passes 1/255."""
+# the raster kernels' warps: 16x4 pixel rectangles, 8 a row of a 16x128 tile
+WARP_W, WARP_H = 16, 4
+
+
+def _warp_skips(prm, x0, y0) -> torch.Tensor:
+    """The kernels' per-warp skip test (skip_test in csrc/raster_common.cuh,
+    in fp32): prm [NT, J, 8], x0 and y0 [NT, 1, R] the warp rectangles'
+    first columns and rows -> [NT, J, R], True where the warp skips the
+    gaussian."""
+    a, b, c = prm[..., 2:3], prm[..., 3:4], prm[..., 4:5]
+    lam = 0.5 * (a + c) - torch.sqrt(0.25 * (a - c) * (a - c) + b * b) - 4e-6 * (a.abs() + c.abs() + 2 * b.abs())
+    h = torch.where(lam > 0, 0.5 * lam * (1 - 1e-5), torch.full_like(lam, -math.inf))
+    t = torch.log(255.0 * prm[..., 5:6]) + 1e-4
+    mx, my = prm[..., 0:1], prm[..., 1:2]
+    ex = torch.clamp(torch.maximum(x0 - mx, mx - (x0 + WARP_W - 1)), min=0.0)
+    ey = torch.clamp(torch.maximum(y0 - my, my - (y0 + WARP_H - 1)), min=0.0)
+    return h * (ex * ex + ey * ey) > t
+
+
+def _pair_work(table, counts, params, swept) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(done [NT], kept [NT, 2048], evaluated [NT]): the gaussians each tile
+    composites before its exit; per pixel of each tile the (gaussian, pixel)
+    pairs among them whose alpha passes 1/255; per tile the pairs that the
+    kernels' warps evaluate, those their skip test does not leave out."""
     from siu3r_tpu_torch.render.tiles import _ALPHA_MAX, _ALPHA_MIN, _CHUNK, TILE_H, TILE_W, tile_grid
 
     n, t, k = table.shape
@@ -511,15 +547,60 @@ def _raster_work(table, counts, params, swept) -> tuple[float, float]:
     p = torch.arange(TILE_H * TILE_W, device=table.device)
     px = ((tiles % n_tx) * TILE_W)[:, None, None] + (p % TILE_W)
     py = ((tiles // n_tx) * TILE_H)[:, None, None] + (p // TILE_W)
-    kept = 0
+    rects = torch.arange((TILE_W // WARP_W) * (TILE_H // WARP_H), device=table.device)
+    wx0 = (((tiles % n_tx) * TILE_W)[:, None] + rects % (TILE_W // WARP_W) * WARP_W).float()[:, None, :]
+    wy0 = (((tiles // n_tx) * TILE_H)[:, None] + rects // (TILE_W // WARP_W) * WARP_H).float()[:, None, :]
+    kept = torch.zeros((n * t, TILE_H * TILE_W), dtype=torch.int64, device=table.device)
+    evaluated = torch.zeros((n * t,), dtype=torch.int64, device=table.device)
     for base in range(0, k, _CHUNK):
         prm = gp[:, base:base + _CHUNK]
         dx, dy = px - prm[..., 0:1], py - prm[..., 1:2]
         power = -0.5 * (prm[..., 2:3] * dx * dx + prm[..., 4:5] * dy * dy) - prm[..., 3:4] * dx * dy
         alpha = torch.clamp(prm[..., 5:6] * torch.exp(power), max=_ALPHA_MAX)
         idx = base + torch.arange(_CHUNK, device=table.device)[None, :, None]
-        kept += int(((alpha >= _ALPHA_MIN) & (idx < done)).sum().item())
-    return float(done.sum().item()) * TILE_H * TILE_W, float(kept)
+        kept += ((alpha >= _ALPHA_MIN) & (idx < done)).sum(dim=1)
+        evaluated += (~_warp_skips(prm, wx0, wy0) & (idx < done)).sum(dim=(1, 2)) * (WARP_W * WARP_H)
+    return done.reshape(-1), kept, evaluated
+
+
+def _raster_work(work) -> tuple[float, float]:
+    """(pairs, kept) of ``_pair_work``'s result: the (gaussian, pixel) pairs
+    the kernel composites before each tile's exit, and those whose alpha
+    passes 1/255."""
+    done, kept, _ = work
+    return float(done.sum().item()) * kept.shape[1], float(kept.sum().item())
+
+
+def _tile_spread(work, counts) -> dict:
+    """How the kept pairs spread over the tiles and over the 16x16 sub-tiles
+    (one block each in the raster kernels): the pairs composited, the
+    shares kept and evaluated by the kernels' warps, the longest tile's
+    share of all kept pairs, its chunks, the longest tile's and sub-tile's
+    kept pairs over the mean of the live ones, and the mean chunks of a live
+    tile."""
+    done, kept, evaluated = work
+    live = counts.reshape(-1) > 0
+    pairs, n_kept = _raster_work(work)
+    if not bool(live.any()) or n_kept == 0:
+        return dict(pairs=pairs, kept_share=0.0, evaluated_share=0.0, longest_share=0.0, longest_chunks=0,
+                    tile_max_over_mean=0.0, sub_max_over_mean=0.0, mean_chunks=0.0)
+    per_tile = kept.sum(dim=1).double()
+    per_sub = kept.reshape(-1, 16, 8, 16).sum(dim=(1, 3)).double()  # [NT, 8]
+    chunks = (done + 127) // 128
+    i = int(per_tile.argmax())
+    return dict(pairs=pairs, kept_share=n_kept / pairs, evaluated_share=float(evaluated.sum().item()) / pairs,
+                longest_share=(per_tile[i] / per_tile.sum()).item(), longest_chunks=int(chunks[i]),
+                tile_max_over_mean=(per_tile[i] / per_tile[live].mean()).item(),
+                sub_max_over_mean=(per_sub.max() / per_sub[live].mean()).item(),
+                mean_chunks=chunks[live].double().mean().item())
+
+
+def _spread_text(sp: dict) -> str:
+    return (f"{sp['pairs']:.4g} pairs composited, {sp['kept_share']:.4f} of them kept, "
+            f"{sp['evaluated_share']:.4f} evaluated by the kernels' warps (the rest skipped); "
+            f"longest tile {sp['longest_share']:.4f} of the kept pairs over {sp['longest_chunks']} chunks "
+            f"(live tiles {sp['mean_chunks']:.2f} chunks on average), longest tile / mean "
+            f"{sp['tile_max_over_mean']:.2f}, longest 16x16 sub-tile / mean {sp['sub_max_over_mean']:.2f}")
 
 
 def _listed_bytes(table, counts, colors, swept) -> float:
@@ -538,14 +619,14 @@ def _listed_bytes(table, counts, colors, swept) -> float:
     return 4.0 * (counts.numel() + float(listed.sum().item()) + 8 * n_params + c * n_colors)
 
 
-def _raster_cost(table, counts, params, colors, swept) -> tuple[float, float]:
+def _raster_cost(table, counts, colors, swept, work) -> tuple[float, float]:
     """Bytes: the inputs up to each tile's exit (``_listed_bytes``) in;
     colour, depth, alpha and the swept counts out. Operations (fp32): 15 for
     the alpha of each pair composited before the exit (the exp counted as
-    one), and 5 + 2C for each pair whose alpha is kept."""
+    one), and 5 + 2C for each pair whose alpha is kept (``_pair_work``)."""
     n, t, k = table.shape
     c = colors.shape[-1]
-    pairs, kept = _raster_work(table, counts, params, swept)
+    pairs, kept = _raster_work(work)
     nbytes = _listed_bytes(table, counts, colors, swept) + 4.0 * (n * IMAGE[0] * IMAGE[1] * (c + 2) + n * t)
     return nbytes, 15.0 * pairs + (5.0 + 2.0 * c) * kept
 
@@ -571,7 +652,9 @@ def check_raster(name, table, counts, params, colors, iters) -> dict:
                mean_swept=s[live].float().mean().item() if bool(live.any()) else 0.0,
                full_sweeps=(s * 128 >= counts)[live].float().mean().item() if bool(live.any()) else 1.0)
     if iters:
-        nbytes, ops = _raster_cost(table, counts, params, colors, s)
+        work = _pair_work(table, counts, params, s)
+        nbytes, ops = _raster_cost(table, counts, colors, s, work)
+        res["spread"] = _tile_spread(work, counts)
         res["ms"], res["elapsed"], _ = time_ms(kern, iters)
         res["plain_ms"] = time_ms(plain, max(3, iters // 4))[0]
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
@@ -580,7 +663,8 @@ def check_raster(name, table, counts, params, colors, iters) -> dict:
                   f"share of live tiles swept to their count {res['full_sweeps']:.3f}, tiles whose sweep "
                   f"differs from the plain version's {res['swept_differ']}"
                   + (f", ms {res['ms']:.5f} (elapsed {res['elapsed']:.5f}) plain_ms {res['plain_ms']:.5f} "
-                     f"bound_ms {res['bound_ms']:.5f} ({res['bound_by']})" if iters else ""))
+                     f"bound_ms {res['bound_ms']:.5f} ({res['bound_by']}); {_spread_text(res['spread'])}"
+                     if iters else ""))
     return res
 
 
@@ -610,12 +694,33 @@ def _synthetic_scene(gen, g: int, n_views: int, opaque: bool = False):
     return proj, pack_params(proj, opac)
 
 
+def check_raster_launch() -> None:
+    """The raster kernels' registers (ptxas) and launches at the eval and
+    training shapes: fails unless more than one block covers a 16x128 tile
+    in both, and the forward's blocks form clusters of more than one."""
+    from siu3r_tpu_torch.kernels.raster import launch_config
+
+    log_ptxas("render_kernels", "raster_kernel")
+    log_ptxas("render_kernels", "raster_bwd_kernel")
+    for backward, views, c in ((False, 6, 3), (False, 6, 16), (False, 4, 3), (True, 4, 3), (True, 4, 16)):
+        lc = launch_config(backward, views, IMAGE, c)
+        log("render_kernels", f"{'raster_bwd' if backward else 'raster'} launch, {views} views C={c}: {lc}")
+        if lc["blocks_per_tile"] < 2 or (not backward and lc["cluster"] < 2):
+            raise AssertionError(f"{'raster_bwd' if backward else 'raster'}: a tile is one block or the "
+                                 f"forward's cluster is one block: {lc}")
+        if not backward and lc["max_active_clusters"] < 1:
+            raise AssertionError(f"raster: no cluster of {lc['cluster']} blocks can be resident: {lc}")
+
+
 def phase_render_kernels() -> dict:
-    """Binning exact and raster within RASTER_ATOL against their plain
-    versions: the eval shapes, then the edge cases."""
+    """The raster kernels' launch configuration, then binning exact and
+    raster within RASTER_ATOL against their plain versions: the eval shapes,
+    then the edge cases."""
     from siu3r_tpu_torch.kernels.binning import bin_gaussians
     from siu3r_tpu_torch.render.projection import ProjectedGaussians
     from siu3r_tpu_torch.render.rasterizer import pack_params
+
+    check_raster_launch()
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     g, views, k = 2 * 256 * 256, 6, 4096
@@ -662,7 +767,7 @@ def phase_render_kernels() -> dict:
 # ---------------------------------------------------------------- phase 3: raster backward, autograd
 
 
-def _raster_bwd_cost(table, counts, params, colors, swept) -> tuple[float, float]:
+def _raster_bwd_cost(table, counts, params, colors, swept, work) -> tuple[float, float]:
     """The least work of the function, not of the kernel's design. Bytes: the
     inputs up to each tile's exit (``_listed_bytes``) and the three image
     cotangents in; the parameter and colour gradients out, whole. Operations
@@ -672,7 +777,7 @@ def _raster_bwd_cost(table, counts, params, colors, swept) -> tuple[float, float
     terms and C colour terms). The kernel sweeps every pair twice."""
     n = table.shape[0]
     c = colors.shape[-1]
-    pairs, kept = _raster_work(table, counts, params, swept)
+    pairs, kept = _raster_work(work)
     n_pix = n * IMAGE[0] * IMAGE[1]
     nbytes = (_listed_bytes(table, counts, colors, swept)
               + 4.0 * (n_pix * (c + 2) + params.numel() + colors.numel()))
@@ -730,7 +835,7 @@ def check_raster_bwd(name, table, counts, params, colors, iters, gen) -> dict:
     gdepth = torch.randn(n, *IMAGE, device="cuda", generator=gen) * 0.1
     galpha = torch.randn(n, *IMAGE, device="cuda", generator=gen)
     grads = (gcolor, gdepth, galpha)
-    kern = lambda: raster_backward(table, counts, params, colors, IMAGE, *grads)
+    kern = lambda: raster_backward(table, counts, params, colors, IMAGE, *grads, swept=swept)
     plain = lambda: raster_backward_plain(table, cut, params, colors, IMAGE, *grads)
     got, want = kern(), plain()
     torch.cuda.synchronize()
@@ -742,7 +847,9 @@ def check_raster_bwd(name, table, counts, params, colors, iters, gen) -> dict:
                              f"{RASTER_BWD_RTOL}, or not finite")
     res["err"] = max(e[0] for e in errs.values())
     if iters:
-        nbytes, ops = _raster_bwd_cost(table, counts, params, colors, swept)
+        work = _pair_work(table, counts, params, swept)
+        nbytes, ops = _raster_bwd_cost(table, counts, params, colors, swept, work)
+        res["spread"] = _tile_spread(work, counts)
         res["ms"], res["elapsed"], _ = time_ms(kern, iters)
         res["plain_ms"] = time_ms(plain, max(2, iters // 10))[0]
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
@@ -750,7 +857,8 @@ def check_raster_bwd(name, table, counts, params, colors, iters, gen) -> dict:
                   + ", ".join(f"{part} {e[0]:.3g}/{e[1]:.3g}/{e[2]:.3g}" for part, e in errs.items())
                   + f"; saturating tiles {res['saturating_tiles']} of {n * t}"
                   + (f", ms {res['ms']:.5f} (elapsed {res['elapsed']:.5f}) plain_ms {res['plain_ms']:.5f} "
-                     f"bound_ms {res['bound_ms']:.5f} ({res['bound_by']})" if iters else ""))
+                     f"bound_ms {res['bound_ms']:.5f} ({res['bound_by']}); {_spread_text(res['spread'])}"
+                     if iters else ""))
     return res
 
 
@@ -778,7 +886,7 @@ def check_raster_bwd_saturating_tile(gen) -> float:
     swept = _raster_cuda(table, counts, params, colors, IMAGE)[3]
     if int(swept[0, 0]) * 128 >= k:
         raise AssertionError("raster_bwd saturating tile: the tile did not stop before the end of its list")
-    got = raster_backward(table, counts, params, colors, IMAGE, *grads)
+    got = raster_backward(table, counts, params, colors, IMAGE, *grads, swept=swept)
     want = raster_backward_plain(table, counts, params, colors, IMAGE, *grads)
     worst = 0.0
     for key, a, b in zip(("dparams", "dcolors"), got, want):
@@ -1511,7 +1619,10 @@ def phase_train() -> dict:
     res["raster_bwd"] = check_raster_bwd("train_step_C3", table, counts, rparams, colors, 10,
                                          torch.Generator(device="cuda").manual_seed(5))
     log("train", f"render of the checked step: mean alpha {coverage:.3f}, chunks swept per live tile "
-                 f"{swept:.2f}, saturating tiles {res['raster_bwd']['saturating_tiles']}")
+                 f"{swept:.2f}, saturating tiles {res['raster_bwd']['saturating_tiles']}; "
+                 f"{_spread_text(res['raster_bwd']['spread'])}; the step's render kernels: raster "
+                 f"{res['raster']['ms']:.5f} ms (bound {res['raster']['bound_ms']:.5f}), raster_bwd "
+                 f"{res['raster_bwd']['ms']:.5f} ms (bound {res['raster_bwd']['bound_ms']:.5f})")
     del pipe, calls, batch
     torch.cuda.empty_cache()
     return res

@@ -1,15 +1,17 @@
 """Build and load the port's CUDA kernels.
 
-Every ``siu3r_tpu_torch/csrc/*.cu`` source is compiled by ``nvcc`` for
+Every ``siu3r_tpu_torch/csrc/*.cu`` source (with the ``*.cuh`` headers
+beside it) is compiled by ``nvcc`` for
 ``sm_90a`` (one process per source, all started together), the objects are
 linked into one shared library with a plain C interface, and the library is
 loaded through ``ctypes``. The build runs at first use, never at import, into
 ``build/kernels/`` at the root of the checkout; the library's name carries a
-hash of the sources, so an edited source is rebuilt.
+hash of the sources and headers, so an edited one is rebuilt.
 
-Each kernel wrapper counts its launches in ``launch_counts`` (one per launch
-of its kernel, nowhere else), so a run can show that a path went through the
-kernels.
+Each kernel wrapper counts its launches in ``launch_counts`` (one per call of
+its C entry that launched, nowhere else), so a run can show that a path went
+through the kernels. One ``raster`` or ``raster_bwd`` count is two device
+launches: the tile-ranking kernel (``order_tiles_kernel``), then the main one.
 """
 
 from __future__ import annotations
@@ -43,8 +45,10 @@ _SIGNATURES = {
     "siu3r_flash_attn_launch_config": [_i] * 5 + [ctypes.POINTER(_i)] * 3,
     "siu3r_msda_fwd": [_vp] * 6 + [_i] * 7 + [_vp],
     "siu3r_bin_gaussians": [_vp] * 4 + [_i] * 5 + [_vp],
-    "siu3r_raster_fwd": [_vp] * 8 + [_i] * 9 + [_ll] * 2 + [_vp],
-    "siu3r_raster_bwd": [_vp] * 9 + [_i] * 9 + [_ll] * 2 + [_vp],
+    "siu3r_raster_fwd": [_vp] * 9 + [_i] * 9 + [_ll] * 2 + [_vp],
+    "siu3r_raster_fwd_launch_config": [_i] * 4 + [ctypes.POINTER(_i)],
+    "siu3r_raster_bwd": [_vp] * 11 + [_i] * 9 + [_ll] * 2 + [_vp],
+    "siu3r_raster_bwd_launch_config": [_i] * 4 + [ctypes.POINTER(_i)],
 }
 
 
@@ -68,7 +72,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -13,7 +13,8 @@ that transmittance.
 
 ``raster`` is differentiable in ``params`` and ``colors`` (a
 ``torch.autograd.Function``): on CUDA tensors its backward is the
-``raster_bwd`` kernel; on CPU tensors it is ``raster_backward_plain``, the VJP
+``raster_bwd`` kernel, handed the forward's ``swept`` so that it stops where
+the forward stopped; on CPU tensors it is ``raster_backward_plain``, the VJP
 of the plain version (the counterpart of differentiating ``_tiles_jnp``).
 The table and counts carry no gradient: the binning is gradient-free, as in
 the JAX package.
@@ -21,8 +22,9 @@ the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -278,7 +280,25 @@ def _checked(table, counts, params, colors, image_size):
         raise ValueError(f"colors must be fp32 on {dev}")
     if cols.stride(-1) != 1:  # the kernels read a gaussian's channels as one row
         cols = cols.contiguous()
+    if params.data_ptr() % 16:  # the kernels copy a gaussian's params as two 16-byte vectors
+        params = params.clone()
     return lead, table, counts, params, cols
+
+
+def launch_config(backward: bool, n_views: int, image_size: Tuple[int, int], n_channels: int) -> dict:
+    """The raster kernel's (or, with ``backward``, ``raster_bwd``'s) launch
+    for these sizes: blocks, threads a block, blocks a cluster, blocks a
+    16x128 tile, static shared bytes a block, and what can be resident at
+    once (the forward: clusters on the device; the backward: blocks an SM).
+    Needs the built library."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 6)()
+    fn = lib.siu3r_raster_bwd_launch_config if backward else lib.siu3r_raster_fwd_launch_config
+    err = fn(n_views, *tile_grid(image_size), n_channels, out)
+    _build.check_launch(err, "raster_bwd launch_config" if backward else "raster launch_config")
+    keys = ("blocks", "threads", "cluster", "blocks_per_tile", "shared_bytes",
+            "resident_blocks_per_sm" if backward else "max_active_clusters")
+    return dict(zip(keys, out))
 
 
 def _raster_cuda(table, counts, params, colors, image_size):
@@ -292,15 +312,16 @@ def _raster_cuda(table, counts, params, colors, image_size):
     depth = torch.empty((n, h, w), dtype=torch.float32, device=dev)
     alpha = torch.empty((n, h, w), dtype=torch.float32, device=dev)
     swept = torch.empty((n, t), dtype=torch.int32, device=dev)
+    order = torch.empty((n * t,), dtype=torch.int32, device=dev)  # the tiles, longest first
     lib = _build.load_library()
     err = lib.siu3r_raster_fwd(
-        table.data_ptr(), counts.data_ptr(), params.data_ptr(), cols.data_ptr(),
+        table.data_ptr(), counts.data_ptr(), order.data_ptr(), params.data_ptr(), cols.data_ptr(),
         color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), swept.data_ptr(),
         n, n_ty, n_tx, k, g, h, w, c, n // cols.shape[0], cols.stride(0), cols.stride(1),
         _build.stream_handle(dev),
     )
     _build.check_launch(err, "raster")
-    _build.launch_counts["raster"] += 1
+    _build.launch_counts["raster"] += 1  # order_tiles_kernel and raster_kernel
     return (
         color.reshape(*lead, h, w, c), depth.reshape(*lead, h, w),
         alpha.reshape(*lead, h, w), swept.reshape(*lead, t),
@@ -316,17 +337,26 @@ def raster_backward(
     gcolor: torch.Tensor,
     gdepth: torch.Tensor,
     galpha: torch.Tensor,
+    swept: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gradients of ``raster``'s color, depth and alpha in params and colors,
     from their cotangents gcolor [..., H, W, C], gdepth and galpha [..., H, W].
     Returns (dparams shaped as params, dcolors shaped as colors), summed over
-    every tile that lists a gaussian. CPU tensors take the plain version; CUDA
-    tensors launch the ``raster_bwd`` kernel, all views in one launch."""
+    every tile that lists a gaussian. CPU tensors take the plain version (the
+    VJP of the whole lists; ``swept`` is not read); CUDA tensors launch the
+    ``raster_bwd`` kernel, all views in one launch, which needs ``swept``
+    [..., T] int32, the chunks ``raster`` composited per tile: it stops where
+    the forward stopped."""
     if table.device.type == "cpu":
         return raster_backward_plain(table, counts, params, colors, image_size, gcolor, gdepth, galpha)
     _, table_f, counts_f, params_f, cols = _checked(table, counts, params, colors, image_size)
     dev = table.device
-    n, _, k = table_f.shape
+    n, t, k = table_f.shape
+    if swept is None:
+        raise ValueError("raster_backward on CUDA tensors needs the forward's swept")
+    if swept.device != dev or swept.dtype != torch.int32 or swept.numel() != n * t:
+        raise ValueError(f"swept must be int32 on {dev} with {n * t} elements (one per tile)")
+    swept = swept.reshape(n, t).contiguous()
     g, c = cols.shape[1:]
     n_ty, n_tx = tile_grid(image_size)
     h, w = image_size
@@ -338,15 +368,17 @@ def raster_backward(
         grads.append(x.reshape(shape).contiguous())
     dparams = torch.zeros((n, g, 8), dtype=torch.float32, device=dev)
     dcolors = torch.zeros((cols.shape[0], g, c), dtype=torch.float32, device=dev)
+    order = torch.empty((n * t,), dtype=torch.int32, device=dev)  # the tiles, longest first
     lib = _build.load_library()
     err = lib.siu3r_raster_bwd(
-        table_f.data_ptr(), counts_f.data_ptr(), params_f.data_ptr(), cols.data_ptr(),
+        table_f.data_ptr(), counts_f.data_ptr(), swept.data_ptr(), order.data_ptr(), params_f.data_ptr(),
+        cols.data_ptr(),
         *(x.data_ptr() for x in grads), dparams.data_ptr(), dcolors.data_ptr(),
         n, n_ty, n_tx, k, g, h, w, c, n // cols.shape[0], cols.stride(0), cols.stride(1),
         _build.stream_handle(dev),
     )
     _build.check_launch(err, "raster_bwd")
-    _build.launch_counts["raster_bwd"] += 1
+    _build.launch_counts["raster_bwd"] += 1  # order_tiles_kernel and raster_bwd_kernel
     return dparams.reshape(params.shape), dcolors.reshape(colors.shape)
 
 
@@ -363,15 +395,16 @@ class _Raster(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, counts, params, colors, image_size):
         out = _raster_forward(table, counts, params, colors, image_size)
-        ctx.save_for_backward(table, counts, params, colors)
+        ctx.save_for_backward(table, counts, params, colors, out[3])
         ctx.image_size = image_size
         ctx.mark_non_differentiable(out[3])
         return out
 
     @staticmethod
     def backward(ctx, gcolor, gdepth, galpha, _gswept):
-        table, counts, params, colors = ctx.saved_tensors
-        dparams, dcolors = raster_backward(table, counts, params, colors, ctx.image_size, gcolor, gdepth, galpha)
+        table, counts, params, colors, swept = ctx.saved_tensors
+        dparams, dcolors = raster_backward(table, counts, params, colors, ctx.image_size, gcolor, gdepth, galpha,
+                                           swept)
         need = ctx.needs_input_grad
         return None, None, dparams if need[2] else None, dcolors if need[3] else None, None
 
