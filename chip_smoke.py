@@ -10,11 +10,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      its plain PyTorch version at the main path's shapes and at edge cases,
      with times, bounds (attention at the 3xTF32 tensor-core rate, with the
      fp32 figure beside it), blocks per launch and, for attention, one
-     PyTorch call computing the same function as a yardstick; the raster
+     PyTorch call computing the same function as a yardstick; MSDA per
+     case, each case failing unless the kernel it expects ran (the staged
+     one, the head's value slice in shared memory, at the main path's shapes;
+     the global-gather one where the slice does not fit), and the MSDA and
+     binning kernels' registers (ptxas); the raster
      kernels' registers (ptxas) and launch configuration (more than one
      block a 16x128 tile, the forward's blocks a cluster of more than one);
      the binning and raster kernels on a synthetic scene at the eval shapes
-     (6 views x 32 tiles, K = 4096, C = 3 and 16) and at edge cases; the
+     (6 views x 32 tiles, K = 4096, C = 3 and 16) and at edge cases, the
+     binning's device time split into the depth sort and its own kernels; the
      raster backward (kernel 6) against the plain VJP at the training shapes
      (4 views x 32 tiles, K = 4096, C = 3) and at edge cases; the autograd
      of the attention, MSDA and raster wrappers against the plain versions';
@@ -24,8 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      cameras framing the scene;
   5. forward: the full-width ViT-L two-view forward at 256x256 from a seeded
      random init, with the launch counts of one forward checked against the
-     model's attention and deformable-attention call sites and no host sync
-     inside it, then timed;
+     model's attention and deformable-attention call sites (every MSDA
+     launch the staged kernel) and no host sync inside it, then timed;
   6. eval step: ``Pipeline.eval_step`` at full width (the forward, then RGB,
      depth and query-class rendering of 6 target views), with its launch
      counts checked, no host sync inside it, then timed; the binning and
@@ -115,16 +120,16 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int, part: str | None = None) -> tuple[float, float, float | None]:
+def time_ms(fn, iters: int, parts: dict | None = None) -> tuple[float, float, dict | None]:
     """(device ms, elapsed ms, part ms) per call over ``iters`` back-to-back
     calls.
 
     Device ms is the card's busy time summed over every kernel, copy and
-    memset the calls ran, from the profiler's CUDA trace; part ms is the
-    share of the device entries whose name contains ``part`` (None without
-    ``part``); elapsed ms comes from CUDA events around the loop and includes
-    the gaps where the card waits for the host to launch (for a small
-    kernel, the wrapper's cost)."""
+    memset the calls ran, from the profiler's CUDA trace; part ms maps each
+    name of ``parts`` to the share of the device entries whose name contains
+    one of its substrings (None without ``parts``); elapsed ms comes from
+    CUDA events around the loop and includes the gaps where the card waits
+    for the host to launch (for a small kernel, the wrapper's cost)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -147,8 +152,9 @@ def time_ms(fn, iters: int, part: str | None = None) -> tuple[float, float, floa
         rows = prof.key_averages()
         device_us = sum(e.self_device_time_total for e in rows)
         if device_us > 0:
-            part_ms = (None if part is None else
-                       sum(e.self_device_time_total for e in rows if part in e.key) / 1e3 / iters)
+            part_ms = None if parts is None else {
+                name: sum(e.self_device_time_total for e in rows if any(x in e.key for x in subs)) / 1e3 / iters
+                for name, subs in parts.items()}
             return device_us / 1e3 / iters, elapsed, part_ms
     raise RuntimeError("the profiler recorded no device time")
 
@@ -318,13 +324,21 @@ def _msda_cost(case, loc) -> tuple[float, float]:
 
 
 def check_msda(name, case, iters, gen):
+    """The MSDA kernel against its plain version on one case; fails unless
+    the kernel that ran is the one ``MSDA_VARIANT`` expects for the case."""
+    from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.kernels.msda import msda, msda_plain
 
     value, loc, aw = _msda_inputs(case, gen)
     shapes = case[5]
     kern = lambda: msda(value, shapes, loc, aw)
     plain = lambda: msda_plain(value, shapes, loc, aw)
+    before = dict(_build.variant_counts)
     out = kern()
+    variant = [v for v, n in _build.variant_counts.items() if n > before.get(v, 0)]
+    expected = MSDA_VARIANT.get(name, "msda.staged")
+    if variant != [expected]:
+        raise AssertionError(f"msda {name}: the {variant} kernel ran, expected {expected}")
     ref = plain()
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
@@ -336,8 +350,8 @@ def check_msda(name, case, iters, gen):
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
     b_ms, b_by = larger(bytes_ms, ops_ms)
     log("kernel", f"msda {name} B={case[0]} Lq={case[1]} H={case[2]} D={case[3]} P={case[4]} "
-                  f"levels={shapes}: max_abs_err {err:.3g} ms {ms:.5f} (elapsed {elapsed:.5f}) "
-                  f"plain_ms {plain_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
+                  f"levels={shapes}: {expected} kernel, max_abs_err {err:.3g} ms {ms:.5f} (elapsed "
+                  f"{elapsed:.5f}) plain_ms {plain_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 bytes_ms=bytes_ms, ops_ms=ops_ms)
 
@@ -375,7 +389,17 @@ MSDA_EDGE = {
     "integer_points": (2, 300, 8, 32, 4, ((8, 8), (16, 16)), 0.0, 1.0, True),
     "outside_unit_square": (1, 200, 4, 64, 4, ((16, 16),), -0.5, 1.5, False),
     "one_by_one_level": (2, 100, 8, 32, 2, ((1, 1), (4, 4)), -0.2, 1.2, False),
+    # the generic instantiation's points in two batches of 32
+    "forty_points": (2, 150, 4, 64, 8, ((8, 8), (4, 4), (2, 2), (1, 1), (6, 5)), -0.1, 1.1, False),
+    # value slices past shared memory (1 MB, 688 KB, 696 KB a head): the
+    # global-gather kernel, in its (1, 4), (3, 4) and generic instantiations
+    "global_one_level": (1, 300, 4, 64, 4, ((64, 64),), -0.05, 1.05, False),
+    "global_three_levels": (2, 300, 4, 32, 4, ((64, 64), (32, 32), (16, 16)), -0.05, 1.05, False),
+    "global_four_levels": (1, 400, 8, 32, 4, ((64, 64), (32, 32), (16, 16), (8, 8)), -0.05, 1.05, False),
 }
+# the kernel each MSDA case must take (``_build.variant_counts``); every
+# other case, the main path's two included, takes the staged one
+MSDA_VARIANT = {name: "msda.global" for name in MSDA_EDGE if name.startswith("global")}
 
 
 ATTN_KERNEL = "flash_attn_fwd_kernel"
@@ -447,6 +471,7 @@ def phase_kernels() -> dict:
         add("msda", check_msda(name, case, 50, gen), calls)
     for name, case in MSDA_EDGE.items():
         per_kernel["msda"]["err"] = max(per_kernel["msda"]["err"], check_msda(name, case, 20, gen)["err"])
+    log_ptxas("kernels", "msda_kernel")
     for kernel, acc in per_kernel.items():
         acc["bound_by"] = larger(acc["bytes_ms"], acc["ops_ms"])[1]
     log("kernels", "all kernels agree with their plain versions "
@@ -471,17 +496,24 @@ def _same_table(got, want) -> bool:
 
 def _bin_cost(proj, table, counts) -> tuple[float, float]:
     """Bytes: mean2d, depth and radius in (16 bytes a gaussian and view); the
-    table and counts out. Operations: four int32 compares per (gaussian,
-    tile) that the tile's list depends on, counted at the int32 rate: every
-    gaussian for a tile with fewer than K members, and those up to its K-th
-    member in depth order for a tile at K."""
+    table and counts out. Operations, at the int32 rate: a gaussian's tile
+    box (12), and a count and a rank for each (gaussian, tile) pair its box
+    covers (4)."""
+    from siu3r_tpu_torch.render.tiles import _tile_ranges, tile_grid
+
     n, g = proj.depth.shape
     t, k = table.shape[-2:]
-    order = torch.sort(proj.depth, dim=-1, stable=True).indices
-    rank = torch.empty_like(order).scatter_(1, order, torch.arange(g, device=order.device).expand(n, -1))
-    kth = rank.gather(1, table[..., k - 1].reshape(n, t).long()) + 1
-    needed = torch.where(counts.reshape(n, t) >= k, kth, torch.full_like(kth, g))
-    return 16.0 * n * g + 4.0 * n * t * (k + 1), 4.0 * float(needed.sum().item())
+    y0, y1, x0, x1, alive = _tile_ranges(proj, *tile_grid(IMAGE), *SLOTS)
+    pairs = torch.where(alive, (y1 - y0 + 1) * (x1 - x0 + 1), 0).sum().item()
+    return 16.0 * n * g + 4.0 * n * t * (k + 1), 12.0 * n * g + 4.0 * float(pairs)
+
+
+BIN_KERNELS = ("bin_prep_kernel", "bin_count_kernel", "bin_write_kernel")
+# the binning wrapper's device entries by name: its own kernels, and the
+# stable depth sort (PyTorch's segmented sort: its radix sort kernels, the
+# copy of the keys, the memset of its scratch and its segment indices)
+BIN_PARTS = {**{p: (p,) for p in BIN_KERNELS},
+             "sort": ("sort", "Sort", "fill_index_and_segment", "Memset", "direct_copy_kernel")}
 
 
 def check_bin(name, proj, k, iters) -> dict:
@@ -494,22 +526,32 @@ def check_bin(name, proj, k, iters) -> dict:
     torch.cuda.synchronize()
     if not _same_table(got, want):
         raise AssertionError(f"bin {name}: table or counts differ from the plain version")
+    past = torch.arange(k, device="cuda") >= got[1][..., None]
+    if bool((got[0][past] != 0).any()):
+        raise AssertionError(f"bin {name}: table entries past a tile's count are not zero")
     counts = got[1].float()
     res = dict(err=0.0, mean_count=counts.mean().item(), at_k=(got[1] == k).float().mean().item())
     if iters:
         nbytes, ops = _bin_cost(proj, *got)
-        # the wrapper's device time (the depth sort and range gather in
-        # torch, then the compaction kernel) and the compaction kernel's own
-        res["ms"], res["elapsed"], res["kernel_ms"] = time_ms(kern, iters, part="bin_kernel")
-        if not res["kernel_ms"] > 0:
-            raise RuntimeError("the profiler's trace holds no bin_kernel entry")
+        # the wrapper's device time: the depth sort (torch), then the three
+        # kernels of csrc/binning.cu, each on its own
+        res["ms"], res["elapsed"], parts = time_ms(kern, iters, parts=BIN_PARTS)
+        res["kernel_ms"] = sum(parts[p] for p in BIN_KERNELS)
+        res.update({f"{p}_ms": ms for p, ms in parts.items()})
+        if not all(parts[p] > 0 for p in BIN_KERNELS):
+            raise RuntimeError(f"the profiler's trace misses a binning kernel: {parts}")
         res["plain_ms"] = time_ms(plain, max(3, iters // 4))[0]
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops, PEAK_INT32_OPS)
     log("kernel", f"bin {name} views={proj.depth.shape[0]} G={proj.depth.shape[1]} K={k}: exact, "
                   f"mean count {res['mean_count']:.1f}, share at K {res['at_k']:.3f}"
-                  + (f", ms {res['ms']:.5f} (bin_kernel {res['kernel_ms']:.5f}, elapsed {res['elapsed']:.5f}) "
-                     f"plain_ms {res['plain_ms']:.5f} bound_ms {res['bound_ms']:.5f} ({res['bound_by']})"
-                     if iters else ""))
+                  + (f", ms {res['ms']:.5f} (elapsed {res['elapsed']:.5f}) plain_ms {res['plain_ms']:.5f} "
+                     f"bound_ms {res['bound_ms']:.5f} ({res['bound_by']})" if iters else ""))
+    if iters:
+        log("kernel", f"bin {name} split: sort_ms {res['sort_ms']:.5f}, own kernels {res['kernel_ms']:.5f} ("
+                      + ", ".join(f"{p} {res[p + '_ms']:.5f}" for p in BIN_KERNELS)
+                      + f"), other {res['ms'] - res['sort_ms'] - res['kernel_ms']:.5f}")
+        for entry, ms in _device_breakdown(kern, iters)[1]:
+            log("kernel", f"  bin {name} device {ms:.5f} ms  {entry[:110]}")
     return res
 
 
@@ -721,6 +763,8 @@ def phase_render_kernels() -> dict:
     from siu3r_tpu_torch.render.rasterizer import pack_params
 
     check_raster_launch()
+    for kernel in BIN_KERNELS:
+        log_ptxas("render_kernels", kernel)
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     g, views, k = 2 * 256 * 256, 6, 4096
@@ -743,6 +787,13 @@ def phase_render_kernels() -> dict:
     check_bin("tied_depths", tied, k, 0)
     tt, tc = bin_gaussians(tied, IMAGE, k, *SLOTS)
     worst["raster"] = max(worst["raster"], check_raster("tied_depths", tt, tc, params, rgb, 0)["err"])
+    # runs of 3000 equal depths across the kernels' 1024-gaussian chunks, in
+    # shuffled order; K reached inside a chunk; G not a multiple of a chunk
+    perm = torch.randperm(g, device="cuda", generator=gen).float()
+    runs = proj._replace(depth=torch.floor(perm / 3000.0)[None].expand(views, -1).contiguous())
+    check_bin("ties_across_chunks", runs, k, 0)
+    check_bin("k_mid_chunk_K100", proj, 100, 0)
+    check_bin("ragged_G_one_view", ProjectedGaussians(*(x[:1, :3 * 1024 + 17].contiguous() for x in proj)), k, 0)
     one = ProjectedGaussians(*(x[:, :1].contiguous() for x in proj))
     one = one._replace(mean2d=torch.full_like(one.mean2d, 100.0), radius=torch.full_like(one.radius, 9.0))
     check_bin("one_gaussian", one, k, 0)
@@ -1145,6 +1196,15 @@ def expected_launches(cfg) -> dict:
     }
 
 
+def check_msda_variants(n: int) -> None:
+    """Every MSDA launch of the counted run took the staged kernel."""
+    from siu3r_tpu_torch.kernels import _build
+
+    variants = dict(_build.variant_counts)
+    if variants != {"msda.staged": n}:
+        raise AssertionError(f"msda kernels {variants}: expected all {n} launches staged")
+
+
 def _device_breakdown(run, iters: int) -> tuple[float, list]:
     """Device time per forward from the profiler's CUDA trace: the total and
     the 20 largest entries by name."""
@@ -1189,6 +1249,7 @@ def phase_forward() -> dict:
         expected = expected_launches(cfg)
         if launches != expected:
             raise AssertionError(f"launches {launches} != expected {expected}")
+        check_msda_variants(expected["msda"])
         g = out.gaussians
         hw = 2 * 256 * 256
         shapes = {"means": (1, hw, 3), "covariances": (1, hw, 3, 3), "harmonics": (1, hw, 3, 25),
@@ -1290,6 +1351,7 @@ def phase_eval() -> dict:
     expected = {**expected_launches(mcfg), "bin": 1, "raster": 2}
     if launches != expected:
         raise AssertionError(f"eval step launches {launches} != expected {expected}")
+    check_msda_variants(expected["msda"])
     n_slots, n_cls = mcfg.mask2former.max_lift_queries, mcfg.mask2former.num_labels + 1
     shapes = {"color": (render.color, (1, N_TARGET, 256, 256, 3)), "depth": (render.depth, (1, N_TARGET, 256, 256)),
               "alpha": (render.alpha, (1, N_TARGET, 256, 256)),
@@ -1548,6 +1610,7 @@ def phase_train() -> dict:
     expected = {**expected_launches(mcfg), "bin": 1, "raster": 1, "raster_bwd": 1}
     if launches != expected:
         raise AssertionError(f"train step launches {launches} != expected {expected}")
+    check_msda_variants(expected["msda"])
     losses = run()
     values = {key: float(x) for key, x in losses.items()}
     if not all(math.isfinite(x) for x in values.values()):

@@ -12,6 +12,11 @@ Each kernel wrapper counts its launches in ``launch_counts`` (one per call of
 its C entry that launched, nowhere else), so a run can show that a path went
 through the kernels. One ``raster`` or ``raster_bwd`` count is two device
 launches: the tile-ranking kernel (``order_tiles_kernel``), then the main one.
+One ``bin`` count is three (``bin_prep_kernel``, ``bin_count_kernel``,
+``bin_write_kernel``), after the wrapper's depth sort in torch. An ``msda``
+count is one launch of one of two kernels, also counted in
+``variant_counts`` as ``msda.staged`` (the head's value slice in shared
+memory) or ``msda.global`` (taps read from global memory).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ NVCC_FLAGS = [
 ]
 
 launch_counts: collections.Counter = collections.Counter()
+variant_counts: collections.Counter = collections.Counter()
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -43,8 +49,9 @@ _ll = ctypes.c_longlong
 _SIGNATURES = {
     "siu3r_flash_attn_fwd": [_vp] * 9 + [_i] * 5 + [_ll] * 9 + [ctypes.c_float, _vp],
     "siu3r_flash_attn_launch_config": [_i] * 5 + [ctypes.POINTER(_i)] * 3,
-    "siu3r_msda_fwd": [_vp] * 6 + [_i] * 7 + [_vp],
-    "siu3r_bin_gaussians": [_vp] * 4 + [_i] * 5 + [_vp],
+    "siu3r_msda_fwd": [_vp] * 6 + [_i] * 7 + [ctypes.POINTER(_i), _vp],
+    "siu3r_bin_scratch_ints": [_i] * 4,
+    "siu3r_bin_gaussians": [_vp] * 6 + [_i] * 9 + [_vp],
     "siu3r_raster_fwd": [_vp] * 9 + [_i] * 9 + [_ll] * 2 + [_vp],
     "siu3r_raster_fwd_launch_config": [_i] * 4 + [ctypes.POINTER(_i)],
     "siu3r_raster_bwd": [_vp] * 11 + [_i] * 9 + [_ll] * 2 + [_vp],
@@ -54,6 +61,7 @@ _SIGNATURES = {
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+    variant_counts.clear()
 
 
 def _nvcc() -> str:

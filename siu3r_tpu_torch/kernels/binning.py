@@ -1,7 +1,8 @@
 """Tile-binning kernel wrapper: ``csrc/binning.cu`` and its plain version.
 
 Replaces the TPU kernel ``_bin_kernel`` of ``siu3r_tpu/render/rasterizer.py``;
-launches are counted as ``bin``. Both versions give each 16x128 tile of each
+launches are counted as ``bin`` (one count: three device launches after the
+depth sort, see ``_build``). Both versions give each 16x128 tile of each
 view the first K alive gaussians, in stable depth order, whose slot-clamped
 3-sigma tile range covers it: a table [..., T, K] of gaussian ids and counts
 [..., T]. Table entries past a tile's count are unspecified (the kernel
@@ -16,7 +17,12 @@ import torch
 
 from siu3r_tpu_torch.kernels import _build
 from siu3r_tpu_torch.render.projection import ProjectedGaussians
-from siu3r_tpu_torch.render.tiles import _tile_ranges, tile_grid
+from siu3r_tpu_torch.render.tiles import TILE_H, TILE_W, _tile_ranges, tile_grid
+
+# the kernels pack a tile box into 8 bits a bound and keep 10 ints a tile in
+# shared memory (csrc/binning.cu)
+MAX_TILE_ROWS = 256
+MAX_TILES = 4096
 
 
 def _flat(proj: ProjectedGaussians) -> ProjectedGaussians:
@@ -78,8 +84,9 @@ def bin_gaussians(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """proj with leading (views) dimensions [..., G] -> (table [..., T, K]
     int32, counts [..., T] int32), T = ceil(H/16) * ceil(W/128). CPU tensors
-    take the plain version; CUDA tensors launch the kernel, all views in one
-    launch."""
+    take the plain version; CUDA tensors launch the kernels, all views at
+    once: the stable depth sort here (torch), then the tile boxes, the
+    histograms and the ranked writes in ``csrc/binning.cu``."""
     dev = proj.depth.device
     if dev.type == "cpu":
         return bin_gaussians_plain(proj, image_size, max_per_tile, slots_y, slots_x)
@@ -94,19 +101,24 @@ def bin_gaussians(
     p = _flat(proj)
     n, g = p.depth.shape
     n_ty, n_tx = tile_grid(image_size)
-    y0, y1, x0, x1, alive = _tile_ranges(p, n_ty, n_tx, slots_y, slots_x)
-    # dead gaussians get the empty range y0 = 1 > y1 = 0
-    y0 = torch.where(alive, y0, torch.ones_like(y0))
-    y1 = torch.where(alive, y1, torch.zeros_like(y1))
+    if n_ty > MAX_TILE_ROWS or n_tx > MAX_TILE_ROWS or n_ty * n_tx > MAX_TILES:
+        raise ValueError(f"the binning kernel takes at most {MAX_TILE_ROWS} tile rows and columns and "
+                         f"{MAX_TILES} tiles; {image_size} has {n_ty} x {n_tx}")
+    lib = _build.load_library()
+    n_scratch = lib.siu3r_bin_scratch_ints(n, g, n_ty, n_tx)
+    if n_scratch < 0:
+        raise ValueError(f"binning scratch for {n} views of {g} gaussians exceeds 2^31 entries")
+    mean2d, radius = p.mean2d.contiguous(), p.radius.contiguous()
+    if mean2d.data_ptr() % 8:  # the kernel reads a mean as one float2
+        mean2d = mean2d.clone()
     order = torch.sort(p.depth, dim=-1, stable=True).indices
-    ranges = torch.stack([y0, y1, x0, x1], dim=-1).gather(1, order[..., None].expand(-1, -1, 4))
-    ids = order.to(torch.int32)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
     table = torch.empty((n, n_ty * n_tx, max_per_tile), dtype=torch.int32, device=dev)
     counts = torch.empty((n, n_ty * n_tx), dtype=torch.int32, device=dev)
-    lib = _build.load_library()
     err = lib.siu3r_bin_gaussians(
-        ranges.data_ptr(), ids.data_ptr(), table.data_ptr(), counts.data_ptr(),
-        n, g, n_ty, n_tx, max_per_tile, _build.stream_handle(dev),
+        mean2d.data_ptr(), radius.data_ptr(), order.data_ptr(), scratch.data_ptr(), table.data_ptr(),
+        counts.data_ptr(), n, g, n_ty, n_tx, TILE_H, TILE_W, slots_y, slots_x, max_per_tile,
+        _build.stream_handle(dev),
     )
     _build.check_launch(err, "bin")
     _build.launch_counts["bin"] += 1

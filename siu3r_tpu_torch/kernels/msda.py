@@ -2,7 +2,9 @@
 plain version (``ops/deformable.multi_scale_deformable_attention``).
 
 Replaces the TPU kernel ``_level_kernel`` of ``siu3r_tpu/ops/msda_pallas.py``;
-launches are counted as ``msda``.
+launches are counted as ``msda``, and by the kernel that ran in
+``_build.variant_counts`` (``msda.staged`` where the head's value slice fits
+shared memory, as on the main path; ``msda.global`` otherwise).
 
 ``msda`` is differentiable (a ``torch.autograd.Function``). Its forward is
 the kernel on CUDA tensors and the plain version on CPU tensors. Its
@@ -25,6 +27,9 @@ from siu3r_tpu_torch.ops.deformable import multi_scale_deformable_attention
 
 KERNEL_HEAD_DIMS = (32, 64)
 MAX_LEVELS = 8
+# the kernel that ran, as siu3r_msda_fwd reports it: the head's value slice
+# staged in shared memory (where it fits), or taps read from global memory
+VARIANTS = {1: "msda.staged", 2: "msda.global"}
 
 msda_plain = multi_scale_deformable_attention
 
@@ -47,6 +52,9 @@ def _check(value, spatial_shapes, loc, aw) -> None:
     for name, t in (("value", value), ("sampling_locations", loc), ("attention_weights", aw)):
         if t.device != value.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 on {value.device}")
+    # the kernel reads value rows as float4 and a point's (x, y) as one float2
+    if value.data_ptr() % 16 or loc.data_ptr() % 8:
+        raise ValueError("value must start on 16 bytes and sampling_locations on 8")
 
 
 def _msda_forward(value, spatial_shapes, sampling_locations, attention_weights) -> torch.Tensor:
@@ -67,13 +75,15 @@ def _msda_forward(value, spatial_shapes, sampling_locations, attention_weights) 
         acc += hh * ww
     start = (ctypes.c_int * n_levels)(*starts)
     out = torch.empty((b, lq, h * d), dtype=torch.float32, device=value.device)
+    variant = ctypes.c_int(0)
     err = lib.siu3r_msda_fwd(
         value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
-        out.data_ptr(), hw, start, n_levels, b, len_in, lq, h, d, n_points,
+        out.data_ptr(), hw, start, n_levels, b, len_in, lq, h, d, n_points, ctypes.byref(variant),
         _build.stream_handle(value.device),
     )
     _build.check_launch(err, "msda")
     _build.launch_counts["msda"] += 1
+    _build.variant_counts[VARIANTS[variant.value]] += 1
     return out
 
 

@@ -19,8 +19,8 @@ an iteration after a problem has converged changes nothing, so the results
 are those of the JAX loop. A round that has converged ends the regime's
 remaining rescue rounds without running them (they would not iterate). A
 typical training step converges within the first block: one host sync.
-Where the JAX package returns -1 for a valid row
-that no round assigned, this raises ``LAPNotConverged``.
+A valid row that no round assigned is returned as -1, as the JAX package
+returns it; the criterion drops it (it masks ``assignment >= 0``).
 """
 
 from __future__ import annotations
@@ -31,10 +31,6 @@ import torch
 
 _NEG = -1e18
 BLOCK = 32
-
-
-class LAPNotConverged(RuntimeError):
-    """A valid row is still unassigned after every round's iteration budget."""
 
 
 def _bid(benefit, valid, prices, eps, owner, row_of):
@@ -99,8 +95,8 @@ def auction_lap(
     max_iters: int = 4000,
 ) -> torch.Tensor:
     """cost [..., R, C] float32 (R <= C); row_valid [..., R] bool (invalid rows
-    get -1). Returns the assigned column per row [..., R] int64. Raises
-    ``LAPNotConverged`` where a valid row is left unassigned."""
+    get -1). Returns the assigned column per row [..., R] int64; a valid row
+    left unassigned after every round's ``max_iters`` is -1 too."""
     *lead, r, c = cost.shape
     if r > c:
         raise ValueError("auction_lap expects rows <= cols")
@@ -130,8 +126,6 @@ def auction_lap(
         prices = cost.new_zeros((n, c))
         for i in range(eps_scale):
             eps = eps0 / 5.0**i
-            _, row_of, left = _auction_round(benefit, all_valid, prices, eps, max_iters)
+            _, row_of, _ = _auction_round(benefit, all_valid, prices, eps, max_iters)
         rows = row_of[:, :r]
-    if left:
-        raise LAPNotConverged(f"the auction left a valid row unassigned after {max_iters} iterations a round")
     return torch.where(valid, rows, torch.full_like(rows, -1)).reshape(*lead, r)

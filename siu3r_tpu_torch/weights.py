@@ -231,12 +231,13 @@ def state_dict_from_jax(variables: Dict[str, Any], cfg: ModelCfg) -> State:
 
 
 def load_checkpoint(model: torch.nn.Module, path: str, prefix: str = "model.") -> None:
-    """Load a reference Lightning ``.ckpt`` (or a bare state_dict file).
-    Every parameter of the port must be present; keys the port has no module
-    for (the loss's buffers, the DPT ``refinenet4.resConfUnit1`` that never
-    runs) are left out."""
+    """Load a reference Lightning ``.ckpt``, a training state written by
+    ``checkpoint_io.save_train_state`` (its ``"model"`` entry) or a bare
+    state_dict file. Every parameter of the port must be present; keys the
+    port has no module for (the loss's buffers, the DPT
+    ``refinenet4.resConfUnit1`` that never runs) are left out."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
-    state = blob.get("state_dict", blob)
+    state = blob["model"] if isinstance(blob.get("model"), dict) else blob.get("state_dict", blob)
     state = {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in state.items()}
     own = model.state_dict()
     model.load_state_dict({k: v for k, v in state.items() if k in own}, strict=True)
