@@ -52,7 +52,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      that file (its own process), its frames held against this process's
      render of the same cameras, and the viewer's HTTP server on loopback, in
      every mode, with no blank RGB or depth frame.
-It then prints the kernels' JSON line and, last, the device line.
+  9. multi_slice: the small config at 3 views on the GPU against the CPU,
+     the forward and the eval step's render, as phase 4;
+ 10. multi_forward: the full-width 8-view forward of
+     configs/scannet_multi.yaml (the shared-bank multi-view backbone) at
+     256x256, its launch counts (the bank's masked cross-attention takes the
+     plain path, so 48 RoPE attention launches), no host sync, finite
+     outputs, 12 warm forwards timed; the attention and MSDA kernels held
+     against their plain versions on the forward's own inputs; the bank
+     attention's device time per forward, and of its forward and backward;
+ 11. multi_eval: ``Pipeline.eval_step`` with 8 context and 10 target views
+     (G = 524,288), as phase 6;
+ 12. multi_train: ``Pipeline.train_step`` on one card at B = 1, 8 context
+     and 10 target views, 48 objects, as phase 8 (6 timed steps), with its
+     peak memory;
+ 13. multi_cli: 8 synthetic images through
+     ``python -m siu3r_tpu_torch.cli.inference_multiview`` (its own process)
+     to ``output.ply``, read back and checked against the reference schema
+     and this process's forward.
+It then prints the kernels' JSON line (each kernel with the two-view path's
+launches and times and, under "multi_view", the 8-view path's) and, last,
+the device line.
 ``--phases`` runs the named phases only (after 1 and 2) and prints neither.
 Imports nothing of JAX or of the JAX package.
 """
@@ -259,12 +279,15 @@ def _attn_bound(case) -> dict:
                 bound_fp32_ms=bound(nbytes, products + rotation)[0])
 
 
-def check_attention(name, case, iters, gen, cross=False):
+def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None):
+    """The attention kernel against its plain version on ``case``'s random
+    inputs, or on ``inputs`` (q, k, v, qrope, krope, kv_mask) taken from a
+    run of the model (``case`` then only describes their shapes)."""
     from siu3r_tpu_torch.kernels.flash_attention import flash_attn, flash_attn_plain, launch_config
     from siu3r_tpu_torch.ops.rope import rope2d_from_cos_sin
 
-    q, k, v, qrope, krope, kv_mask = _attn_inputs(case, gen, cross)
-    scale = case[4] ** -0.5
+    q, k, v, qrope, krope, kv_mask = inputs or _attn_inputs(case, gen, cross)
+    scale = scale or case[4] ** -0.5
     kern = lambda: flash_attn(q, k, v, scale, qrope=qrope, krope=krope, kv_mask=kv_mask)
     plain = lambda: flash_attn_plain(q, k, v, scale, qrope, krope, kv_mask)
     out = kern()
@@ -323,13 +346,15 @@ def _msda_cost(case, loc) -> tuple[float, float]:
     return nbytes, taps * (2 * d + 3)
 
 
-def check_msda(name, case, iters, gen):
-    """The MSDA kernel against its plain version on one case; fails unless
-    the kernel that ran is the one ``MSDA_VARIANT`` expects for the case."""
+def check_msda(name, case, iters, gen, inputs=None):
+    """The MSDA kernel against its plain version on one case's random inputs,
+    or on ``inputs`` (value, locations, weights) taken from a run of the
+    model; fails unless the kernel that ran is the one ``MSDA_VARIANT``
+    expects for the case."""
     from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.kernels.msda import msda, msda_plain
 
-    value, loc, aw = _msda_inputs(case, gen)
+    value, loc, aw = inputs or _msda_inputs(case, gen)
     shapes = case[5]
     kern = lambda: msda(value, shapes, loc, aw)
     plain = lambda: msda_plain(value, shapes, loc, aw)
@@ -445,40 +470,49 @@ def check_attention_build() -> None:
             raise AssertionError(f"{body[0]}: no tensor-core TF32 product ({mma}) or async copy ({copies}) in the SASS")
 
 
+def _model_kernel_totals() -> dict:
+    """Per-forward sums of the model kernels' checks, filled by ``_add_check``."""
+    zero = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    return {"flash_attn_rope": dict(zero, bound_fp32_ms=0.0), "flash_attn": dict(zero, bound_fp32_ms=0.0),
+            "msda": dict(zero, library_ms=None)}
+
+
+def _add_check(per_kernel: dict, kernel: str, res: dict, calls: int) -> None:
+    """Add ``calls`` launches of one checked case to the totals."""
+    acc = per_kernel[kernel]
+    acc["err"] = max(acc["err"], res["err"])
+    for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "bound_fp32_ms"):
+        if key in acc:
+            acc[key] += calls * res[key]
+    if acc["library_ms"] is not None:
+        acc["library_ms"] += calls * res["library_ms"]
+
+
+def _totals_text(per_kernel: dict) -> str:
+    for acc in per_kernel.values():
+        acc["bound_by"] = larger(acc["bytes_ms"], acc["ops_ms"])[1]
+    return ", ".join(f"{k} ms {a['ms']:.5f} bound_ms {a['bound_ms']:.5f}"
+                     + (f" (fp32 SIMT {a['bound_fp32_ms']:.5f})" if "bound_fp32_ms" in a else "")
+                     + f" library_ms {a['library_ms']}" for k, a in per_kernel.items())
+
+
 def phase_kernels() -> dict:
     check_attention_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    zero = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
-    per_kernel = {"flash_attn_rope": dict(zero, bound_fp32_ms=0.0), "flash_attn": dict(zero, bound_fp32_ms=0.0),
-                  "msda": dict(zero, library_ms=None)}
-
-    def add(kernel, res, calls):
-        acc = per_kernel[kernel]
-        acc["err"] = max(acc["err"], res["err"])
-        for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "bound_fp32_ms"):
-            if key in acc:
-                acc[key] += calls * res[key]
-        if acc["library_ms"] is not None:
-            acc["library_ms"] += calls * res["library_ms"]
-
+    per_kernel = _model_kernel_totals()
     for name, (case, kernel, calls, cross) in ATTN_MAIN.items():
-        add(kernel, check_attention(name, case, 50, gen, cross), calls)
+        _add_check(per_kernel, kernel, check_attention(name, case, 50, gen, cross), calls)
     for name, case in ATTN_EDGE.items():
         res = check_attention(name, case, 20, gen)
         kernel = "flash_attn_rope" if case[5] else "flash_attn"
         per_kernel[kernel]["err"] = max(per_kernel[kernel]["err"], res["err"])
     for name, (case, calls) in MSDA_MAIN.items():
-        add("msda", check_msda(name, case, 50, gen), calls)
+        _add_check(per_kernel, "msda", check_msda(name, case, 50, gen), calls)
     for name, case in MSDA_EDGE.items():
         per_kernel["msda"]["err"] = max(per_kernel["msda"]["err"], check_msda(name, case, 20, gen)["err"])
     log_ptxas("kernels", "msda_kernel")
-    for kernel, acc in per_kernel.items():
-        acc["bound_by"] = larger(acc["bytes_ms"], acc["ops_ms"])[1]
     log("kernels", "all kernels agree with their plain versions "
-                   f"(attention atol {ATTN_ATOL}, msda atol {MSDA_ATOL}); per forward: "
-                   + ", ".join(f"{k} ms {a['ms']:.5f} bound_ms {a['bound_ms']:.5f}"
-                               + (f" (fp32 SIMT {a['bound_fp32_ms']:.5f})" if "bound_fp32_ms" in a else "")
-                               + f" library_ms {a['library_ms']}" for k, a in per_kernel.items()))
+                   f"(attention atol {ATTN_ATOL}, msda atol {MSDA_ATOL}); per forward: " + _totals_text(per_kernel))
     return per_kernel
 
 
@@ -1047,7 +1081,7 @@ def phase_autograd() -> None:
 # ---------------------------------------------------------------- phase 4
 
 
-def _small_cfg():
+def _small_cfg(num_views: int = 2):
     """A small config whose head dims the kernels take: encoder 512/8 (D=64),
     decoder 256/4 (D=64), adapter 512/16 (D=32), Mask2Former 64/2 (D=32)."""
     from siu3r_tpu_torch.config import CrocoCfg, GaussianHeadCfg, Mask2formerCfg, ModelCfg
@@ -1063,6 +1097,7 @@ def _small_cfg():
         ),
         gaussian_head=GaussianHeadCfg(sh_degree=2),
         image_size=(64, 64),
+        num_views=num_views,
     )
 
 
@@ -1075,8 +1110,9 @@ def _floats(out) -> dict:
     return res
 
 
-def _target_views(means: torch.Tensor, n_views: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """n_views target cameras framing the first context view's Gaussians:
+def _target_views(means: torch.Tensor, n_views: int, context_views: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+    """n_views target cameras framing the first of ``context_views`` context
+    views' Gaussians:
     camera-to-world poses [1, n_views, 4, 4] looking down +z from 0.15 units
     behind the nearest of them (clear of the renderer's 0.1 near plane), on a
     small circle about their median, and normalised intrinsics
@@ -1086,7 +1122,7 @@ def _target_views(means: torch.Tensor, n_views: int) -> tuple[torch.Tensor, torc
     views' field of view sees a few percent of its pixels covered.)
     Set-up: syncs with the host."""
     m = means.reshape(-1, 3).float()
-    m = m[: m.shape[0] // 2]  # the first context view's pixels
+    m = m[: m.shape[0] // context_views]  # the first context view's pixels
     center = m.median(dim=0).values
     rel = m - center
     dist = max(float(-rel[:, 2].quantile(0.02)), 0.0) + 0.15
@@ -1112,20 +1148,23 @@ def _eval_batch(images, intr, targets) -> dict:
     }
 
 
-def phase_slice_check() -> None:
+def _slice_check(phase: str, views: int) -> None:
+    """The small config at ``views`` views on the GPU (kernels) against the
+    same weights on the CPU (plain versions): the forward, then the eval
+    step's render."""
     from siu3r_tpu_torch.config import PipelineCfg, RootCfg
     from siu3r_tpu_torch.models.model import SIU3RModel
     from siu3r_tpu_torch.pipeline import Pipeline
     from siu3r_tpu_torch.renderer import render_color_and_qc
 
-    root = RootCfg(pipeline=PipelineCfg(model=_small_cfg()))
+    root = RootCfg(pipeline=PipelineCfg(model=_small_cfg(views)))
     gpu_pipe = Pipeline(root, device="cuda", seed=7)
     gpu = gpu_pipe.model
     cpu = SIU3RModel(root.pipeline.model, device="cpu", seed=0).eval()
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     rng = np.random.RandomState(0)
-    images = torch.from_numpy(rng.rand(1, 2, 64, 64, 3).astype(np.float32))
-    intr = torch.tensor([[1.24, 0, 0.5], [0, 1.24, 0.5], [0, 0, 1]]).expand(1, 2, 3, 3).contiguous()
+    images = torch.from_numpy(rng.rand(1, views, 64, 64, 3).astype(np.float32))
+    intr = torch.tensor([[1.24, 0, 0.5], [0, 1.24, 0.5], [0, 0, 1]]).expand(1, views, 3, 3).contiguous()
     with torch.inference_mode():
         og = gpu(images.cuda(), intr.cuda(), enable_query_class_logit_lift=True)
         oc = cpu(images, intr, enable_query_class_logit_lift=True)
@@ -1135,26 +1174,26 @@ def phase_slice_check() -> None:
         a = a.cpu().double()
         b = b.double()
         if not torch.isfinite(a).all():
-            raise AssertionError(f"slice check: {key} not finite")
+            raise AssertionError(f"{phase}: {key} not finite")
         excess = ((a - b).abs() - SLICE_RTOL * b.abs()).max().item()
         worst = max(worst, excess)
         if excess > SLICE_ATOL:
-            raise AssertionError(f"slice check: {key} differs by {excess} beyond rtol {SLICE_RTOL}")
+            raise AssertionError(f"{phase}: {key} differs by {excess} beyond rtol {SLICE_RTOL}")
     agree = min(
         (og.gaussians.semantic_labels.cpu() == oc.gaussians.semantic_labels).float().mean().item(),
         (og.gaussians.instance_labels.cpu() == oc.gaussians.instance_labels).float().mean().item(),
     )
     if agree < LABEL_AGREEMENT:
-        raise AssertionError(f"slice check: labels agree on {agree:.5f} < {LABEL_AGREEMENT}")
-    log("slice", f"small config on cuda (kernels) vs cpu (plain): floats within rtol {SLICE_RTOL} "
-                 f"atol {SLICE_ATOL} (worst excess {worst:.3g}), labels agree {agree:.5f}")
+        raise AssertionError(f"{phase}: labels agree on {agree:.5f} < {LABEL_AGREEMENT}")
+    log(phase, f"small config, {views} views, on cuda (kernels) vs cpu (plain): floats within rtol {SLICE_RTOL} "
+               f"atol {SLICE_ATOL} (worst excess {worst:.3g}), labels agree {agree:.5f}")
 
     # the eval step: the same forward, then the render of 4 target views,
     # held against the CPU plain render of the step's own Gaussians. (Not
     # against the CPU forward's Gaussians: the 1/255 alpha cut is a step, and
     # across a covered view the forward's rounding moves some pairs over it,
     # each moving a pixel by up to T/255.)
-    batch = _eval_batch(images, intr, _target_views(oc.gaussians.means, 4))
+    batch = _eval_batch(images, intr, _target_views(oc.gaussians.means, 4, views))
     out, rg, qg = gpu_pipe.eval_step({k: v.cuda() for k, v in batch.items()})
     g = out.gaussians
     s = out.post["qc_mask_probs"].shape[1]
@@ -1166,19 +1205,27 @@ def phase_slice_check() -> None:
         )
     coverage = rc.alpha.mean().item()
     if coverage < MIN_COVERAGE:
-        raise AssertionError(f"slice check: the target views see almost nothing (mean alpha {coverage})")
+        raise AssertionError(f"{phase}: the target views see almost nothing (mean alpha {coverage})")
     excesses = {}
     for key, a, b, atol in (("color", rg.color, rc.color, RENDER_ATOL), ("alpha", rg.alpha, rc.alpha, RENDER_ATOL),
                             ("depth", rg.depth, rc.depth, RENDER_DEPTH_ATOL), ("qc", qg, qc, RENDER_ATOL)):
         a, b = a.cpu().double(), b.double()
         excesses[key] = ((a - b).abs() - RENDER_RTOL * b.abs()).max().item()
         if not torch.isfinite(a).all() or excesses[key] > atol:
-            raise AssertionError(f"slice check: eval step {key} differs by {excesses[key]} beyond rtol "
+            raise AssertionError(f"{phase}: eval step {key} differs by {excesses[key]} beyond rtol "
                                  f"{RENDER_RTOL} atol {atol}")
-    log("slice", f"small config eval step on cuda (kernels) vs the cpu render (plain) of its Gaussians, "
-                 f"4 target views, mean alpha "
-                 f"{coverage:.3f}: within rtol {RENDER_RTOL} atol {RENDER_ATOL} (depth {RENDER_DEPTH_ATOL}), "
-                 f"worst excess {excesses}")
+    log(phase, f"small config eval step, {views} views, on cuda (kernels) vs the cpu render (plain) of its Gaussians, "
+               f"4 target views, mean alpha "
+               f"{coverage:.3f}: within rtol {RENDER_RTOL} atol {RENDER_ATOL} (depth {RENDER_DEPTH_ATOL}), "
+               f"worst excess {excesses}")
+
+
+def phase_slice_check() -> None:
+    _slice_check("slice", 2)
+
+
+def phase_multi_slice() -> None:
+    _slice_check("multi_slice", 3)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1186,9 +1233,14 @@ def phase_slice_check() -> None:
 
 def expected_launches(cfg) -> dict:
     c, m = cfg.croco, cfg.mask2former
+    # per decoder block of each of the two decoders: self-attention, and in
+    # the two-view backbone the cross-attention to the other view (the
+    # multi-view backbone's cross-attention over the shared bank is masked
+    # and takes the plain path)
+    per_dec_block = 4 if cfg.num_views == 2 else 2
     return {
-        # encoder self-attention per block; decoder self + cross per block, two decoders
-        "flash_attn_rope": c.enc_depth + 4 * c.dec_depth,
+        # encoder self-attention per block (every view in one launch), then the decoders
+        "flash_attn_rope": c.enc_depth + per_dec_block * c.dec_depth,
         # Mask2Former query self-attention per decoder layer
         "flash_attn": m.decoder_layers - 1,
         # adapter: 4 interactions + 2 extra extractors; pixel decoder: one per encoder layer
@@ -1222,18 +1274,145 @@ def _device_breakdown(run, iters: int) -> tuple[float, list]:
     return total, rows[:20]
 
 
-def phase_forward() -> dict:
+def _view_inputs(views: int, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded images [1, views, 256, 256, 3] and the CLI's default intrinsics."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.rand(1, views, 256, 256, 3, device="cuda", generator=gen)
+    k = torch.tensor([[318 / 256, 0, 0.5], [0, 318 / 256, 0.5], [0, 0, 1]], device="cuda")
+    return images, k.expand(1, views, 3, 3).contiguous()
+
+
+def two_view_cfg():
+    """The default (two-view) configuration with the ScanNet classes."""
     from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
+
+    return bind_scannet_classes(RootCfg())
+
+
+def multi_cfg():
+    """The repo's 8-view configuration, ``configs/scannet_multi.yaml``."""
+    from siu3r_tpu_torch.config import bind_scannet_classes, load_config
+
+    return bind_scannet_classes(load_config(Path(__file__).resolve().parent / "configs" / "scannet_multi.yaml"))
+
+
+def multi_targets(cfg) -> int:
+    """The target views of the config's sampler: the context views and the
+    extra target views between them (siu3r_tpu/data/datasets.py:128-153)."""
+    return cfg.pipeline.model.num_views + cfg.datamodule.dataset_cfg.num_extra_target_views
+
+
+@contextlib.contextmanager
+def _recorded(module, name: str, keep=lambda args: True):
+    """Record the calls of ``module.name`` inside the block whose bound
+    arguments pass ``keep``: a list of {argument: value}, the result,
+    detached, under "out"."""
+    import inspect
+
+    orig = getattr(module, name)
+    sig = inspect.signature(orig)
+    calls = []
+
+    def rec(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        out = orig(*args, **kwargs)
+        if keep(bound.arguments):
+            kept = tuple(x.detach() for x in out) if isinstance(out, tuple) else out.detach()
+            calls.append({**bound.arguments, "out": kept})
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def _distinct(calls: list, key) -> dict:
+    """{key: (first call, number of calls)} of recorded calls."""
+    out = {}
+    for call in calls:
+        kk = key(call)
+        out[kk] = (out[kk][0], out[kk][1] + 1) if kk in out else (call, 1)
+    return out
+
+
+def _check_model_kernels(phase: str, run, iters: int) -> dict:
+    """The attention and MSDA kernels held against their plain versions on
+    the inputs one ``run`` of the model gives them: each distinct shape
+    checked and timed once, its times counted once per launch."""
+    import siu3r_tpu_torch.kernels.flash_attention as FA
+    import siu3r_tpu_torch.models.adapter as A
+
+    with _recorded(FA, "flash_attn") as attn_calls, _recorded(A, "msda") as msda_calls:
+        run()
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    per_kernel = _model_kernel_totals()
+    attn = _distinct(attn_calls, lambda c: (tuple(c["q"].shape), tuple(c["k"].shape), c["qrope"] is not None,
+                                            c["kv_mask"] is not None))
+    for (qs, ks, rope, masked), (c, n) in attn.items():
+        case = (qs[0], qs[1], qs[2], ks[2], qs[3], rope, "kv" if masked else None)
+        kernel = "flash_attn_rope" if rope else "flash_attn"
+        inputs = (c["q"], c["k"], c["v"], c["qrope"], c["krope"], c["kv_mask"])
+        res = check_attention(f"{phase} x{n}", case, iters, gen, inputs=inputs, scale=c["scale"])
+        _add_check(per_kernel, kernel, res, n)
+    for (vs, ls), (c, n) in _distinct(msda_calls, lambda c: (tuple(c["value"].shape),
+                                                             tuple(c["sampling_locations"].shape))).items():
+        case = (vs[0], ls[1], vs[2], vs[3], ls[4], tuple(map(tuple, c["spatial_shapes"])), None, None, None)
+        inputs = (c["value"], c["sampling_locations"], c["attention_weights"])
+        _add_check(per_kernel, "msda", check_msda(f"{phase} x{n}", case, iters, gen, inputs=inputs), n)
+    log(phase, f"the model kernels on the run's own inputs ({len(attn_calls)} attention and {len(msda_calls)} "
+               f"msda launches, {len(attn)} attention shapes) agree with their plain versions; per forward: "
+               + _totals_text(per_kernel))
+    return per_kernel
+
+
+def _bank_attention(phase: str, run, dec_depth: int, iters: int) -> dict:
+    """The multi-view decoder's masked cross-attention over the shared bank
+    (RoPE on q and k, logits, mask, softmax, the weighted sum; the plain
+    path), on the inputs one ``run`` gives it: device ms per forward, and of
+    its forward and backward together per train step (the projections
+    around it excluded)."""
+    import siu3r_tpu_torch.models.layers as L
+
+    with torch.no_grad(), _recorded(L, "rope_attention", keep=lambda a: a["mask"] is not None) as calls:
+        run()
+    if len(calls) != 2 * dec_depth:
+        raise AssertionError(f"{phase}: {len(calls)} masked bank attentions, expected {2 * dec_depth}")
+    shapes = _distinct(calls, lambda c: (tuple(c["q"].shape), tuple(c["k"].shape)))
+    fwd_ms = train_ms = logits_bytes = 0.0
+    for (qs, ks), (c, n) in shapes.items():
+        args = {key: x.detach() if isinstance(x, torch.Tensor) else x for key, x in c.items() if key != "out"}
+        ms = time_ms(lambda: L.rope_attention(**args), iters)[0]
+        leaves = {key: args[key].clone().requires_grad_(True) for key in ("q", "k", "v")}
+        cot = torch.randn(qs, device="cuda")
+
+        def fwd_bwd():
+            out = L.rope_attention(**{**args, **leaves})
+            return torch.autograd.grad(out, list(leaves.values()), cot)
+
+        both_ms = time_ms(fwd_bwd, max(3, iters // 2))[0]
+        fwd_ms += n * ms
+        train_ms += n * both_ms
+        logits_bytes = max(logits_bytes, 4.0 * qs[0] * qs[1] * qs[2] * ks[2])
+        log(phase, f"bank attention q {qs} k {ks} x{n}: {ms:.4f} ms forward, {both_ms:.4f} ms forward and backward")
+    return dict(fwd_ms=fwd_ms, train_ms=train_ms, calls=len(calls), largest_logits_mb=logits_bytes / 1e6)
+
+
+def _forward(phase: str, cfg) -> dict:
+    """The full-width forward over ``cfg.num_views`` views at 256x256: launch
+    counts against the model's call sites (every MSDA launch staged), no host
+    sync, shapes and finite outputs, then 12 warm forwards timed. With more
+    than two views, also the model kernels held against their plain versions
+    on the forward's own inputs and the bank attention's device time."""
     from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.models.model import build_model
 
-    cfg = bind_scannet_classes(RootCfg()).pipeline.model
+    views = cfg.num_views
     model = build_model(cfg, device="cuda", seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    images = torch.rand(1, 2, 256, 256, 3, device="cuda", generator=gen)
-    k = torch.tensor([[318 / 256, 0, 0.5], [0, 318 / 256, 0.5], [0, 0, 1]], device="cuda")
-    intr = k.expand(1, 2, 3, 3).contiguous()
+    images, intr = _view_inputs(views)
     run = lambda: model(images, intr, enable_query_class_logit_lift=True)
 
     with torch.inference_mode():
@@ -1248,21 +1427,24 @@ def phase_forward() -> dict:
         launches = dict(_build.launch_counts)
         expected = expected_launches(cfg)
         if launches != expected:
-            raise AssertionError(f"launches {launches} != expected {expected}")
+            raise AssertionError(f"{phase}: launches {launches} != expected {expected}")
         check_msda_variants(expected["msda"])
         g = out.gaussians
-        hw = 2 * 256 * 256
-        shapes = {"means": (1, hw, 3), "covariances": (1, hw, 3, 3), "harmonics": (1, hw, 3, 25),
-                  "opacities": (1, hw), "seg_query_class_logits": (1, hw, 16, 21)}
+        hw = views * 256 * 256
+        m2f = cfg.mask2former
+        shapes = {"means": (1, hw, 3), "covariances": (1, hw, 3, 3),
+                  "harmonics": (1, hw, 3, (cfg.gaussian_head.sh_degree + 1) ** 2), "opacities": (1, hw),
+                  "seg_query_class_logits": (1, hw, m2f.max_lift_queries, m2f.num_labels + 1)}
         for f, shape in shapes.items():
             if tuple(getattr(g, f).shape) != shape:
-                raise AssertionError(f"{f} shape {tuple(getattr(g, f).shape)} != {shape}")
+                raise AssertionError(f"{phase}: {f} shape {tuple(getattr(g, f).shape)} != {shape}")
         for name, t in {**_floats(out), "pts3d": out.pts3d, "qc_mask": out.post["qc_mask_probs"]}.items():
             if not torch.isfinite(t).all():
-                raise AssertionError(f"forward output {name} is not finite")
+                raise AssertionError(f"{phase}: forward output {name} is not finite")
         labels = g.semantic_labels
         if int(labels.min()) < 0 or int(labels.max()) > cfg.mask2former.num_labels:
-            raise AssertionError("semantic labels out of range")
+            raise AssertionError(f"{phase}: semantic labels out of range")
+        del out, g, labels
 
         times = []
         torch.cuda.reset_peak_memory_stats()
@@ -1278,16 +1460,32 @@ def phase_forward() -> dict:
     res = dict(params=n_params, launches=launches, median_s=med, min_s=min(times), max_s=max(times),
                passes_per_s=1.0 / med, peak_gib=peak / 2**30, device_ms=device_ms,
                idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=top)
-    log("forward", f"ViT-L two-view 256x256 B=1 fp32, {n_params} params: launches {launches} "
-                   f"(expected {expected}), no host sync, outputs finite; median of {len(times)} warm forwards "
-                   f"{med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
-                   f"{1.0 / med:.3f} passes/s, peak memory {peak / 2**30:.3f} GiB; device busy "
-                   f"{device_ms:.2f} ms per forward, idle share {res['idle_share']:.3f}")
+    log(phase, f"ViT-L {views}-view 256x256 B=1 fp32, {n_params} params: launches {launches} "
+               f"(expected {expected}), no host sync, outputs finite; median of {len(times)} warm forwards "
+               f"{med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
+               f"{1.0 / med:.3f} passes/s, peak memory {peak / 2**30:.3f} GiB; device busy "
+               f"{device_ms:.2f} ms per forward, idle share {res['idle_share']:.3f}")
     for name, ms in top[:8]:
-        log("forward", f"  device {ms:8.3f} ms  {name[:100]}")
-    del model, out
+        log(phase, f"  device {ms:8.3f} ms  {name[:100]}")
+    if views > 2:
+        with torch.inference_mode():
+            res["kernels"] = _check_model_kernels(phase, run, 20)
+        res["bank"] = bank = _bank_attention(phase, run, cfg.croco.dec_depth, 20)
+        bank["fwd_share"] = bank["fwd_ms"] / device_ms
+        log(phase, f"bank attention ({bank['calls']} calls, the plain path): {bank['fwd_ms']:.3f} ms per forward "
+                   f"= {bank['fwd_share']:.4f} of the forward's device time; forward and backward "
+                   f"{bank['train_ms']:.3f} ms per train step; largest logits {bank['largest_logits_mb']:.1f} MB")
+    del model
     torch.cuda.empty_cache()
     return res
+
+
+def phase_forward() -> dict:
+    return _forward("forward", two_view_cfg().pipeline.model)
+
+
+def phase_multi_forward() -> dict:
+    return _forward("multi_forward", multi_cfg().pipeline.model)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1298,44 +1496,28 @@ N_TARGET = 6  # 2 context + 4 extra target views, as the validation CLI sets
 @contextlib.contextmanager
 def _render_calls():
     """Record the rasterizer's binning and raster calls inside the block:
-    {"bin": [args], "raster": [args], "raster_out": [detached outputs]}."""
+    {"bin": [call], "raster": [call]}, each call as ``_recorded`` keeps it."""
     import siu3r_tpu_torch.render.rasterizer as R
 
-    calls = {"bin": [], "raster": [], "raster_out": []}
-    orig = R.bin_gaussians, R.raster
-
-    def bin_rec(*args):
-        calls["bin"].append(args)
-        return orig[0](*args)
-
-    def raster_rec(*args):
-        calls["raster"].append(args)
-        out = orig[1](*args)
-        calls["raster_out"].append(tuple(x.detach() for x in out))
-        return out
-
-    R.bin_gaussians, R.raster = bin_rec, raster_rec
-    try:
-        yield calls
-    finally:
-        R.bin_gaussians, R.raster = orig
+    with _recorded(R, "bin_gaussians") as bins, _recorded(R, "raster") as rasters:
+        yield {"bin": bins, "raster": rasters}
 
 
-def phase_eval() -> dict:
-    from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
+def _eval(phase: str, cfg, n_target: int) -> dict:
+    """``Pipeline.eval_step`` at full width over ``cfg``'s views and
+    ``n_target`` target views: launch counts, no host sync, shapes, finite
+    and covered renders, then 12 warm steps timed; the binning and raster
+    kernels held against their plain versions on the step's own inputs."""
     from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.pipeline import Pipeline, lift_rendered_qc
 
-    cfg = bind_scannet_classes(RootCfg())
     pipe = Pipeline(cfg, device="cuda", seed=0)
     mcfg = cfg.pipeline.model
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    images = torch.rand(1, 2, 256, 256, 3, device="cuda", generator=gen)
-    k = torch.tensor([[318 / 256, 0, 0.5], [0, 318 / 256, 0.5], [0, 0, 1]], device="cuda")
-    intr = k.expand(1, 2, 3, 3).contiguous()
+    views = mcfg.num_views
+    images, intr = _view_inputs(views)
     with torch.inference_mode():
         means = pipe.model(images, intr).gaussians.means
-    batch = _eval_batch(images, intr, _target_views(means, N_TARGET))
+    batch = _eval_batch(images, intr, _target_views(means, n_target, views))
     run = lambda: pipe.eval_step(batch)
 
     run()  # warm-up
@@ -1346,25 +1528,25 @@ def phase_eval() -> dict:
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    # one binning for the 6 views; one raster launch for the RGB set (C = 3)
-    # and one for the 16 query-class channels
+    # one binning for every target view; one raster launch for the RGB set
+    # (C = 3) and one for the 16 query-class channels
     expected = {**expected_launches(mcfg), "bin": 1, "raster": 2}
     if launches != expected:
-        raise AssertionError(f"eval step launches {launches} != expected {expected}")
+        raise AssertionError(f"{phase}: eval step launches {launches} != expected {expected}")
     check_msda_variants(expected["msda"])
     n_slots, n_cls = mcfg.mask2former.max_lift_queries, mcfg.mask2former.num_labels + 1
-    shapes = {"color": (render.color, (1, N_TARGET, 256, 256, 3)), "depth": (render.depth, (1, N_TARGET, 256, 256)),
-              "alpha": (render.alpha, (1, N_TARGET, 256, 256)),
-              "qc": (qc, (1, N_TARGET, n_slots, n_cls, 256, 256))}
+    shapes = {"color": (render.color, (1, n_target, 256, 256, 3)), "depth": (render.depth, (1, n_target, 256, 256)),
+              "alpha": (render.alpha, (1, n_target, 256, 256)),
+              "qc": (qc, (1, n_target, n_slots, n_cls, 256, 256))}
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"eval step {name}: shape {tuple(t.shape)} (expected {shape}) or not finite")
+            raise AssertionError(f"{phase}: eval step {name}: shape {tuple(t.shape)} (expected {shape}) or not finite")
     coverage = render.alpha.mean().item()
     if coverage < MIN_COVERAGE:
-        raise AssertionError(f"eval step: the target views see almost nothing (mean alpha {coverage})")
+        raise AssertionError(f"{phase}: eval step: the target views see almost nothing (mean alpha {coverage})")
     sem, ins = lift_rendered_qc(qc, out.gaussians.seg_query_scores, num_queries=mcfg.mask2former.num_queries)
-    if tuple(sem.shape) != (1, N_TARGET, 256, 256) or int(sem.min()) < 0 or int(sem.max()) >= n_cls:
-        raise AssertionError("lifted semantic ids out of shape or range")
+    if tuple(sem.shape) != (1, n_target, 256, 256) or int(sem.min()) < 0 or int(sem.max()) >= n_cls:
+        raise AssertionError(f"{phase}: lifted semantic ids out of shape or range")
     del out, render, qc, sem, ins
 
     times = []
@@ -1381,29 +1563,39 @@ def phase_eval() -> dict:
     res = dict(launches=launches, median_s=med, min_s=min(times), max_s=max(times), steps_per_s=1.0 / med,
                peak_gib=peak / 2**30, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3),
                top_device_ms=top, mean_alpha=coverage)
-    log("eval", f"Pipeline.eval_step, ViT-L two-view 256x256 B=1 fp32 + {N_TARGET} target views: launches "
+    log(phase, f"Pipeline.eval_step, ViT-L {views}-view 256x256 B=1 fp32 + {n_target} target views: launches "
                 f"{launches} (expected), no host sync, outputs finite, mean alpha {coverage:.3f}; median of "
                 f"{len(times)} warm steps {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
                 f"{max(times) * 1e3:.2f}) = {1.0 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; "
                 f"device busy {device_ms:.2f} ms per step, idle share {res['idle_share']:.3f}")
     for name, ms in top[:12]:
-        log("eval", f"  device {ms:8.3f} ms  {name[:100]}")
+        log(phase, f"  device {ms:8.3f} ms  {name[:100]}")
 
     # the binning and raster kernels on the step's own inputs
     with _render_calls() as calls:
         run()
     if len(calls["bin"]) != 1 or len(calls["raster"]) != 2:
-        raise AssertionError(f"recorded {len(calls['bin'])} binning and {len(calls['raster'])} raster calls")
-    proj, _, kcap, _, _ = calls["bin"][0]
-    res["bin"] = check_bin("eval_step", proj, kcap, 20)
-    res["raster"] = [check_raster(f"eval_step_C{a[3].shape[-1]}", *a[:4], 20) for a in calls["raster"]]
+        raise AssertionError(f"{phase}: recorded {len(calls['bin'])} binning and {len(calls['raster'])} raster calls")
+    proj, kcap = calls["bin"][0]["proj"], calls["bin"][0]["max_per_tile"]
+    res["bin"] = check_bin(f"{phase}_step", proj, kcap, 20)
+    res["raster"] = [check_raster(f"{phase}_step_C{c['colors'].shape[-1]}", c["table"], c["counts"], c["params"],
+                                  c["colors"], 20) for c in calls["raster"]]
     occ = res["bin"]
-    log("eval", f"tile occupancy: mean count {occ['mean_count']:.1f} of K={kcap}, share of tiles at K "
+    log(phase, f"tile occupancy: mean count {occ['mean_count']:.1f} of K={kcap}, share of tiles at K "
                 f"{occ['at_k']:.3f}, chunks swept per live tile {res['raster'][0]['mean_swept']:.2f} "
                 f"of {kcap // 128}, share of live tiles swept to their count {res['raster'][0]['full_sweeps']:.3f}")
     del pipe, calls, proj
     torch.cuda.empty_cache()
     return res
+
+
+def phase_eval() -> dict:
+    return _eval("eval", two_view_cfg(), N_TARGET)
+
+
+def phase_multi_eval() -> dict:
+    cfg = multi_cfg()
+    return _eval("multi_eval", cfg, multi_targets(cfg))
 
 
 
@@ -1554,31 +1746,27 @@ def _count_syncs(run) -> tuple[int, dict]:
 def _occupancy(calls) -> tuple[float, float]:
     """(mean alpha, chunks swept per live tile) of the first recorded raster
     call."""
-    counts = calls["raster"][0][1]
-    _, _, alpha, swept = calls["raster_out"][0]
+    counts = calls["raster"][0]["counts"]
+    _, _, alpha, swept = calls["raster"][0]["out"]
     live = counts > 0
     return alpha.mean().item(), swept[live].float().mean().item() if bool(live.any()) else 0.0
 
 
-def phase_train() -> dict:
-    """(b) ``Pipeline.train_step`` at full width: launches per step, finite
-    losses, the frozen encoder untouched and the trained parts moved; then
+def _train(phase: str, cfg, n_target: int, steps: int) -> dict:
+    """(b) ``Pipeline.train_step`` at full width over ``cfg``'s views and
+    ``n_target`` target views: launches per step, finite losses, the frozen
+    encoder untouched and the trained parts moved; then ``steps`` steps
     timed, each step's target cameras framing the Gaussians that step
     renders, with kernel 6 held against its plain version on a step's own
     inputs."""
-    from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
     from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.pipeline import Pipeline
     from siu3r_tpu_torch.train.optimizer import group_of
 
-    phase_train_small()
-    cfg = bind_scannet_classes(RootCfg())
     pipe = Pipeline(cfg, device="cuda", seed=0).init_train(steps_per_epoch=1000)
     mcfg = cfg.pipeline.model
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    images = torch.rand(1, 2, 256, 256, 3, device="cuda", generator=gen)
-    k = torch.tensor([[318 / 256, 0, 0.5], [0, 318 / 256, 0.5], [0, 0, 1]], device="cuda")
-    intr = k.expand(1, 2, 3, 3).contiguous()
+    views = mcfg.num_views
+    images, intr = _view_inputs(views)
 
     def targets():
         # cameras framing the Gaussians of a train-mode forward of the current
@@ -1586,7 +1774,7 @@ def phase_train() -> dict:
         # heads start from a random init). Set-up: it syncs with the host and
         # updates the BatchNorms' running statistics.
         with torch.no_grad():
-            return _target_views(pipe.model.train()(images, intr).gaussians.means, TRAIN_TARGETS)
+            return _target_views(pipe.model.train()(images, intr).gaussians.means, n_target, views)
 
     batch = _train_batch(images, intr, targets(), N_OBJECTS, N_VALID, mcfg.mask2former.num_labels, seed=3)
 
@@ -1609,29 +1797,29 @@ def phase_train() -> dict:
     lap_syncs = sum(n for where, n in sync_sources.items() if "lap.py:" in where)
     expected = {**expected_launches(mcfg), "bin": 1, "raster": 1, "raster_bwd": 1}
     if launches != expected:
-        raise AssertionError(f"train step launches {launches} != expected {expected}")
+        raise AssertionError(f"{phase}: train step launches {launches} != expected {expected}")
     check_msda_variants(expected["msda"])
     losses = run()
     values = {key: float(x) for key, x in losses.items()}
     if not all(math.isfinite(x) for x in values.values()):
-        raise AssertionError(f"train step losses not finite: {values}")
+        raise AssertionError(f"{phase}: train step losses not finite: {values}")
     moved = {}
     for n, p in params.items():
         d = (p.detach() - before[n]).abs().max().item()
         group = "frozen" if group_of(n, True) == "frozen" else n.split(".")[0]
         moved[group] = max(moved.get(group, 0.0), d)
     if moved["frozen"] != 0.0:
-        raise AssertionError(f"the frozen encoder moved by {moved['frozen']}")
+        raise AssertionError(f"{phase}: the frozen encoder moved by {moved['frozen']}")
     for part in ("mask2former", "adapter", "gaussian_param_head1", "gaussian_param_head2"):
         if not moved.get(part, 0.0) > 0.0:
-            raise AssertionError(f"{part} did not move: {moved}")
+            raise AssertionError(f"{phase}: {part} did not move: {moved}")
     del before
 
     # timed steps, each framed before its clock starts; every one must see
     # the scene and composite real work (MIN_COVERAGE, MIN_SWEPT)
     times, occupancy = [], []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(8):
+    for _ in range(steps):
         frame()
         with _render_calls() as calls:
             torch.cuda.synchronize()
@@ -1644,7 +1832,7 @@ def phase_train() -> dict:
     peak = torch.cuda.max_memory_allocated()
     alphas, swepts = zip(*occupancy)
     if min(alphas) < MIN_COVERAGE or min(swepts) < MIN_SWEPT:
-        raise AssertionError(f"timed train steps: mean alpha {alphas}, chunks swept per live tile {swepts}: "
+        raise AssertionError(f"{phase}: timed train steps: mean alpha {alphas}, chunks swept per live tile {swepts}: "
                              f"below {MIN_COVERAGE} or {MIN_SWEPT}")
     frame()
     device_ms, top = _device_breakdown(run, 1)
@@ -1654,57 +1842,90 @@ def phase_train() -> dict:
                top_device_ms=top, host_syncs=n_syncs, sync_sources=sync_sources, lap_syncs=lap_syncs,
                losses=values, moved=moved, step=pipe.optimizer.count, mean_alpha=list(alphas),
                swept_per_live_tile=list(swepts))
-    log("train", f"Pipeline.train_step, ViT-L two-view 256x256 B=1 fp32, {TRAIN_TARGETS} target views, "
-                 f"{N_OBJECTS} objects ({N_VALID} valid): launches {launches} (expected), losses finite "
-                 f"({', '.join(f'{k} {values[k]:.4f}' for k in ('seg', 'depth_smoothness', 'render_mse', 'lpips', 'total'))}), "
-                 f"frozen encoder unchanged, moved {({k: round(v, 8) for k, v in moved.items()})}")
-    log("train", f"median of {len(times)} warm steps {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
-                 f"{max(times) * 1e3:.2f}) = {1.0 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; device "
-                 f"busy {device_ms:.2f} ms per step, idle share {res['idle_share']:.3f}; host syncs per step "
-                 f"{n_syncs} (the LAP's convergence tests {lap_syncs}; sources {sync_sources}); per timed step "
-                 f"mean alpha {[round(a, 3) for a in alphas]}, chunks swept per live tile "
-                 f"{[round(x, 2) for x in swepts]}")
+    log(phase, f"Pipeline.train_step, ViT-L {views}-view 256x256 B=1 fp32, {n_target} target views, "
+               f"{N_OBJECTS} objects ({N_VALID} valid): launches {launches} (expected), losses finite "
+               f"({', '.join(f'{k} {values[k]:.4f}' for k in ('seg', 'depth_smoothness', 'render_mse', 'lpips', 'total'))}), "
+               f"frozen encoder unchanged, moved {({k: round(v, 8) for k, v in moved.items()})}")
+    log(phase, f"median of {len(times)} warm steps {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+               f"{max(times) * 1e3:.2f}) = {1.0 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; device "
+               f"busy {device_ms:.2f} ms per step, idle share {res['idle_share']:.3f}; host syncs per step "
+               f"{n_syncs} (the LAP's convergence tests {lap_syncs}; sources {sync_sources}); per timed step "
+               f"mean alpha {[round(a, 3) for a in alphas]}, chunks swept per live tile "
+               f"{[round(x, 2) for x in swepts]}")
     for name, ms in top[:12]:
-        log("train", f"  device {ms:8.3f} ms  {name[:100]}")
+        log(phase, f"  device {ms:8.3f} ms  {name[:100]}")
 
     # the render kernels on a framed step's own inputs
     frame()
     with _render_calls() as calls:
         run()
     if len(calls["bin"]) != 1 or len(calls["raster"]) != 1:
-        raise AssertionError(f"recorded {len(calls['bin'])} binning and {len(calls['raster'])} raster calls")
-    table, counts, rparams, colors, _ = (x.detach() if isinstance(x, torch.Tensor) else x
-                                         for x in calls["raster"][0])
+        raise AssertionError(f"{phase}: recorded {len(calls['bin'])} binning and {len(calls['raster'])} raster calls")
+    table, counts, rparams, colors = (calls["raster"][0][k].detach() for k in ("table", "counts", "params", "colors"))
     coverage, swept = _occupancy(calls)
     if coverage < MIN_COVERAGE or swept < MIN_SWEPT:
-        raise AssertionError(f"train step: mean alpha {coverage}, chunks swept per live tile {swept}")
-    res["raster"] = check_raster("train_step_C3", table, counts, rparams, colors, 20)
-    res["raster_bwd"] = check_raster_bwd("train_step_C3", table, counts, rparams, colors, 10,
+        raise AssertionError(f"{phase}: train step: mean alpha {coverage}, chunks swept per live tile {swept}")
+    res["raster"] = check_raster(f"{phase}_step_C3", table, counts, rparams, colors, 20)
+    res["raster_bwd"] = check_raster_bwd(f"{phase}_step_C3", table, counts, rparams, colors, 10,
                                          torch.Generator(device="cuda").manual_seed(5))
-    log("train", f"render of the checked step: mean alpha {coverage:.3f}, chunks swept per live tile "
-                 f"{swept:.2f}, saturating tiles {res['raster_bwd']['saturating_tiles']}; "
-                 f"{_spread_text(res['raster_bwd']['spread'])}; the step's render kernels: raster "
-                 f"{res['raster']['ms']:.5f} ms (bound {res['raster']['bound_ms']:.5f}), raster_bwd "
-                 f"{res['raster_bwd']['ms']:.5f} ms (bound {res['raster_bwd']['bound_ms']:.5f})")
+    log(phase, f"render of the checked step: mean alpha {coverage:.3f}, chunks swept per live tile "
+               f"{swept:.2f}, saturating tiles {res['raster_bwd']['saturating_tiles']}; "
+               f"{_spread_text(res['raster_bwd']['spread'])}; the step's render kernels: raster "
+               f"{res['raster']['ms']:.5f} ms (bound {res['raster']['bound_ms']:.5f}), raster_bwd "
+               f"{res['raster_bwd']['ms']:.5f} ms (bound {res['raster_bwd']['bound_ms']:.5f})")
     del pipe, calls, batch
     torch.cuda.empty_cache()
     return res
+
+
+def phase_train() -> dict:
+    phase_train_small()
+    return _train("train", two_view_cfg(), TRAIN_TARGETS, 8)
+
+
+def phase_multi_train() -> dict:
+    cfg = multi_cfg()
+    return _train("multi_train", cfg, multi_targets(cfg), 6)
 
 
 # ---------------------------------------------------------------- phase 7
 
 
 def _cli_forward(images: np.ndarray):
-    """The CLI's forward rebuilt here (same seed, default intrinsics) -> host Gaussians."""
-    from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
+    """The CLIs' forward rebuilt here (their config for images [1, V, ...],
+    the same seed, the default intrinsics) -> host Gaussians."""
+    from siu3r_tpu_torch.cli.inference import model_cfg
     from siu3r_tpu_torch.models.model import build_model
 
-    model = build_model(bind_scannet_classes(RootCfg()).pipeline.model, device="cuda", seed=0)
+    views = images.shape[1]
+    model = build_model(model_cfg(views), device="cuda", seed=0)
     k = torch.tensor([[318 / 256, 0, 0.5], [0, 318 / 256, 0.5], [0, 0, 1]], device="cuda")
     with torch.inference_mode():
-        out = model(torch.from_numpy(images).cuda(), k.expand(1, 2, 3, 3).contiguous(),
+        out = model(torch.from_numpy(images).cuda(), k.expand(1, views, 3, 3).contiguous(),
                     enable_query_class_logit_lift=True)
     return out.gaussians.to_host()
+
+
+def _synthetic_images(directory: Path, n: int, seed: int) -> list:
+    """n seeded 240x320 RGB images written as PNGs; their paths."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    paths = []
+    for i in range(n):
+        paths.append(directory / f"view{i}.png")
+        Image.fromarray((rng.rand(240, 320, 3) * 255).astype(np.uint8)).save(paths[-1])
+    return paths
+
+
+def _run_cli(phase: str, module: str, *args: str) -> None:
+    """``python -m module args`` in its own process, from the checkout's root."""
+    cli = subprocess.run([sys.executable, "-m", module, *args], cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=600)
+    for line in cli.stdout.splitlines():
+        log(phase, line)
+    if cli.returncode != 0:
+        raise RuntimeError(f"{module} exited {cli.returncode}:\n{cli.stderr[-4000:]}")
 
 
 def check_ply(ply: dict, g) -> float:
@@ -1743,28 +1964,14 @@ def check_ply(ply: dict, g) -> float:
 
 
 def phase_cli() -> None:
-    from PIL import Image
-
     from siu3r_tpu_torch.cli import inference
     from siu3r_tpu_torch.io import read_ply
 
-    rng = np.random.RandomState(3)
     with tempfile.TemporaryDirectory() as tmp:
-        paths = []
-        for i in range(2):
-            img = (rng.rand(240, 320, 3) * 255).astype(np.uint8)
-            paths.append(Path(tmp) / f"view{i}.png")
-            Image.fromarray(img).save(paths[-1])
+        paths = _synthetic_images(Path(tmp), 2, seed=3)
         out_dir = Path(tmp) / "out"
-        cli = subprocess.run(
-            [sys.executable, "-m", "siu3r_tpu_torch.cli.inference", "--image_path1", str(paths[0]),
-             "--image_path2", str(paths[1]), "--output_path", str(out_dir)],
-            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600,
-        )
-        for line in cli.stdout.splitlines():
-            log("cli", line)
-        if cli.returncode != 0:
-            raise RuntimeError(f"the CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
+        _run_cli("cli", "siu3r_tpu_torch.cli.inference", "--image_path1", str(paths[0]),
+                 "--image_path2", str(paths[1]), "--output_path", str(out_dir))
         ply = read_ply(out_dir / "output.ply")
         images = np.stack([inference.preprocess_image(p) for p in paths])[None]
         agree = check_ply(ply, _cli_forward(images))
@@ -1775,6 +1982,32 @@ def phase_cli() -> None:
         factor = _room_scale(out_dir / "output.ply", room)
         log("viewer", f"output.ply scaled by {factor:.3f} to room size: 70% of its Gaussians within 2 units")
         check_viewer(room, Path(tmp) / "orbit")
+
+
+def phase_multi_cli() -> None:
+    """``python -m siu3r_tpu_torch.cli.inference_multiview`` (its own
+    process) on a directory of synthetic images, one for each view of
+    ``multi_cfg``, to ``output.ply``, read back and held against the
+    reference schema and this process's forward."""
+    from siu3r_tpu_torch.cli import inference
+    from siu3r_tpu_torch.io import read_ply
+
+    with tempfile.TemporaryDirectory() as tmp:
+        image_dir = Path(tmp) / "views"
+        image_dir.mkdir()
+        views = multi_cfg().pipeline.model.num_views
+        paths = _synthetic_images(image_dir, views, seed=8)
+        out_dir = Path(tmp) / "out"
+        _run_cli("multi_cli", "siu3r_tpu_torch.cli.inference_multiview", "--image_dir", str(image_dir),
+                 "--output_path", str(out_dir))
+        ply = read_ply(out_dir / "output.ply")
+        if len(ply["x"]) != views * 256 * 256:
+            raise AssertionError(f"multi_cli: output.ply holds {len(ply['x'])} vertices, not {views} x 256 x 256")
+        images = np.stack([inference.preprocess_image(p) for p in sorted(paths)])[None]
+        agree = check_ply(ply, _cli_forward(images))
+        log("multi_cli", f"siu3r_tpu_torch.cli.inference_multiview wrote output.ply: {len(ply['x'])} vertices "
+                         f"({views} views), {len(ply)} properties in the reference schema, equal to the "
+                         f"model's outputs (labels agree {agree:.5f})")
 
 
 VIEWER_MODES = ("rgb", "depth", "semantic", "instance")
@@ -1895,7 +2128,18 @@ SOURCES = {
 }
 PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "raster_bwd": phase_raster_bwd,
           "autograd": phase_autograd, "slice": phase_slice_check, "forward": phase_forward, "eval": phase_eval,
-          "train": phase_train, "cli": phase_cli}
+          "train": phase_train, "cli": phase_cli, "multi_slice": phase_multi_slice,
+          "multi_forward": phase_multi_forward, "multi_eval": phase_multi_eval, "multi_train": phase_multi_train,
+          "multi_cli": phase_multi_cli}
+
+
+def _raster_sum(checks: list) -> dict:
+    """One entry for the raster launches of a step: times summed, the bound
+    named by the largest one."""
+    out = {key: sum(r[key] for r in checks) for key in ("ms", "plain_ms", "bound_ms")}
+    out["err"] = max(r["err"] for r in checks)
+    out["bound_by"] = max(checks, key=lambda r: r["bound_ms"])["bound_by"]
+    return out
 
 
 def main(argv=None) -> None:
@@ -1926,41 +2170,43 @@ def main(argv=None) -> None:
     ev = phase_eval()
     tr = phase_train()
     phase_cli()
+    phase_multi_slice()
+    mfwd = phase_multi_forward()
+    mev = phase_multi_eval()
+    mtr = phase_multi_train()
+    phase_multi_cli()
 
+    # per kernel: the two-view path's launches and times (model kernels per
+    # forward, at its shapes; render kernels per eval step and kernel 6 per
+    # train step, on the step's own inputs), then the multi-view path's, each
+    # on its own run's inputs
+    two_view = {**per_kernel, "bin": ev["bin"], "raster": _raster_sum(ev["raster"]), "raster_bwd": tr["raster_bwd"]}
+    two_view_launches = {**fwd["launches"], "bin": ev["launches"]["bin"], "raster": ev["launches"]["raster"],
+                         "raster_bwd": tr["launches"]["raster_bwd"]}
+    multi = {**mfwd["kernels"], "bin": mev["bin"], "raster": _raster_sum(mev["raster"]),
+             "raster_bwd": mtr["raster_bwd"]}
+    multi_launches = {**mfwd["launches"], "bin": mev["launches"]["bin"], "raster": mev["launches"]["raster"],
+                      "raster_bwd": mtr["launches"]["raster_bwd"]}
+    worst = {**{k: two_view[k]["err"] for k in per_kernel}, "bin": render_err["bin"],
+             "raster": max(render_err["raster"], two_view["raster"]["err"]),
+             "raster_bwd": max(bwd_err, tr["raster_bwd"]["err"])}
     kernels = []
-    for name, acc in per_kernel.items():
-        source, replaces = SOURCES[name]
+    for name, (source, replaces) in SOURCES.items():
+        acc, macc = two_view[name], multi[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": fwd["launches"][name], "max_abs_err": acc["err"],
+            "launches": two_view_launches[name], "max_abs_err": max(worst[name], macc["err"]),
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
-            "bound_by": acc["bound_by"], "library_ms": acc["library_ms"],
+            "bound_by": acc["bound_by"], "library_ms": acc.get("library_ms"),
+            "multi_view": {"launches": multi_launches[name], "ms": macc["ms"], "plain_ms": macc["plain_ms"],
+                           "bound_ms": macc["bound_ms"], "bound_by": macc["bound_by"],
+                           "library_ms": macc.get("library_ms")},
         })
-    # the render kernels: per eval step, on the step's own inputs
-    raster_sum = {key: sum(r[key] for r in ev["raster"]) for key in ("ms", "plain_ms", "bound_ms")}
-    raster_by = max(ev["raster"], key=lambda r: r["bound_ms"])["bound_by"]
-    for name, acc, by in (("bin", ev["bin"], ev["bin"]["bound_by"]), ("raster", raster_sum, raster_by)):
-        source, replaces = SOURCES[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": ev["launches"][name],
-            "max_abs_err": max([render_err[name]] + [r["err"] for r in ev["raster"]] * (name == "raster")),
-            "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
-            "bound_by": by, "library_ms": None,
-        })
-    # the raster backward: per train step, on the step's own inputs
-    bwd = tr["raster_bwd"]
-    source, replaces = SOURCES["raster_bwd"]
-    kernels.append({
-        "name": "raster_bwd", "route": "cuda", "source": source, "replaces": replaces,
-        "launches": tr["launches"]["raster_bwd"], "max_abs_err": max(bwd_err, bwd["err"]),
-        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": None,
-    })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
-            {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr}, indent=1))
+            {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr, "multi_forward": mfwd,
+             "multi_eval": mev, "multi_train": mtr}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,6 @@
-"""SIU3R on PyTorch and CUDA: the two-view recon+seg forward of ``siu3r_tpu``,
-its validation step (novel-view rendering) and its viewer, rebuilt for one
-NVIDIA H100.
+"""SIU3R on PyTorch and CUDA: the recon+seg forward of ``siu3r_tpu`` over two
+views or more, its validation step (novel-view rendering), its training
+step and its viewer, rebuilt for one NVIDIA H100.
 
 The JAX package ``siu3r_tpu`` is the reference each module here is held
 against; this package imports neither it nor JAX. Attention (with and without

@@ -43,11 +43,19 @@ def preprocess_image(image_path) -> np.ndarray:
     return np.asarray(image, dtype=np.float32) / 255.0
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser()
+def model_cfg(num_views: int = 2):
+    """The full-width ScanNet model's config (ViT-L CroCo, 256x256) for
+    ``num_views`` views."""
+    from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
+
+    cfg = bind_scannet_classes(RootCfg()).pipeline.model
+    cfg.num_views = num_views
+    return cfg
+
+
+def add_model_args(parser: argparse.ArgumentParser) -> None:
+    """The options both inference CLIs take besides their images."""
     parser.add_argument("--model_path", type=str, default=None)
-    parser.add_argument("--image_path1", type=str, required=True)
-    parser.add_argument("--image_path2", type=str, required=True)
     parser.add_argument("--output_path", type=str, default="infer_outputs")
     parser.add_argument("--cx", type=float, default=128.0)
     parser.add_argument("--cy", type=float, default=128.0)
@@ -55,23 +63,26 @@ def main(argv=None):
     parser.add_argument("--fy", type=float, default=318.0)
     parser.add_argument("--save_sh_dc_only", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
-    args = parser.parse_args(argv)
 
-    from siu3r_tpu_torch.config import RootCfg, bind_scannet_classes
+
+def run(args: argparse.Namespace, image_paths, cfg) -> Path:
+    """The forward of ``cfg``'s model over ``image_paths`` (one view each, in
+    order) with the query-class lift, written to ``output.ply`` under
+    ``args.output_path``; returns its path."""
     from siu3r_tpu_torch.device import resolve_device
     from siu3r_tpu_torch.io import export_ply
     from siu3r_tpu_torch.models.model import build_model
     from siu3r_tpu_torch.weights import load_checkpoint
 
     device = resolve_device(args.device)
-    cfg = bind_scannet_classes(RootCfg()).pipeline.model
-    images = np.stack([preprocess_image(args.image_path1), preprocess_image(args.image_path2)])[None]
+    images = np.stack([preprocess_image(p) for p in image_paths])[None]  # [1, V, 256, 256, 3]
+    v = images.shape[1]
     intr = np.array(
         [[args.fx / 256.0, 0, args.cx / 256.0], [0, args.fy / 256.0, args.cy / 256.0], [0, 0, 1]],
         dtype=np.float32,
     )
     images_t = torch.from_numpy(images).to(device)
-    intr_t = torch.from_numpy(np.stack([intr, intr])[None]).to(device)
+    intr_t = torch.from_numpy(np.stack([intr] * v)[None]).to(device)
 
     model = build_model(cfg, device=device, seed=0)
     if args.model_path is None:
@@ -84,7 +95,7 @@ def main(argv=None):
         out = model(images_t, intr_t, enable_query_class_logit_lift=True)
     g = out.gaussians.to_host()
     print(f"[siu3r_tpu_torch] forward in {time.perf_counter() - t0:.1f}s on {device} "
-          f"({g.means.shape[1]} gaussians)")
+          f"({g.means.shape[1]} gaussians from {v} views)")
 
     out_dir = Path(args.output_path)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -102,6 +113,16 @@ def main(argv=None):
         save_sh_dc_only=args.save_sh_dc_only,
     )
     print(f"[siu3r_tpu_torch] wrote {out_dir / 'output.ply'}")
+    return out_dir / "output.ply"
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--image_path1", type=str, required=True)
+    parser.add_argument("--image_path2", type=str, required=True)
+    add_model_args(parser)
+    args = parser.parse_args(argv)
+    run(args, [args.image_path1, args.image_path2], model_cfg(2))
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""The two-view SIU3R model in PyTorch."""
+"""The SIU3R model in PyTorch."""

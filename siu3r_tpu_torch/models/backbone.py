@@ -1,11 +1,16 @@
-"""Two-view asymmetric CroCo backbone, counterpart of
-``siu3r_tpu/models/backbone.py:AsymmetricCroCo``.
+"""Asymmetric CroCo backbones, counterparts of
+``siu3r_tpu/models/backbone.py:AsymmetricCroCo`` (two views) and
+``AsymmetricCroCoMulti`` (V views).
 
-A shared ViT encoder over both views with an intrinsic token (a Linear(9 -> C)
-of the flattened intrinsics) appended at the synthetic position (grid_h, 0);
-then two decoders, ``dec_blocks`` for view 1 and ``dec_blocks2`` for view 2,
-each layer cross-attending the other view's *pre-layer* tokens. The JAX
-package's ``nn.scan`` stacks become Python loops over ``nn.ModuleList``s.
+Both share one ViT encoder over every view with an intrinsic token (a
+Linear(9 -> C) of the flattened intrinsics) appended at the synthetic
+position (grid_h, 0), and two decoders, ``dec_blocks`` for view 0 and
+``dec_blocks2`` for the other views. In the two-view backbone each layer
+cross-attends the other view's *pre-layer* tokens; in the multi-view one it
+cross-attends a bank of every view's pre-layer tokens, masked so that no
+view reads its own. The module names are the same in both, so one state dict
+serves both. The JAX package's ``nn.scan`` stacks become Python loops over
+``nn.ModuleList``s.
 """
 
 from __future__ import annotations
@@ -31,7 +36,15 @@ class BackboneOutput:
     shape: Tuple[int, int]
 
 
-class AsymmetricCroCo(nn.Module):
+@dataclasses.dataclass
+class MultiViewBackboneOutput:
+    feat: torch.Tensor  # [B, V, L, C_enc] final encoder feat, intrinsic token stripped
+    all_feat: List[torch.Tensor]  # enc_depth x [B, V, L, C_enc]
+    dec_feat: List[torch.Tensor]  # dec_depth+1 x [B, V, L, .] ([0] = encoder feat)
+    shape: Tuple[int, int]
+
+
+class _CroCoBase(nn.Module):
     def __init__(self, cfg: CrocoCfg):
         super().__init__()
         self.cfg = cfg
@@ -70,6 +83,10 @@ class AsymmetricCroCo(nn.Module):
             all_feat.append(x)
         return self.enc_norm(x), pos, all_feat
 
+
+class AsymmetricCroCo(_CroCoBase):
+    """The two-view backbone."""
+
     def forward(self, images: torch.Tensor, intrinsics: torch.Tensor) -> BackboneOutput:
         """images [B, 2, H, W, 3]; intrinsics [B, 2, 3, 3] (normalised)."""
         b, v, h, w, _ = images.shape
@@ -105,5 +122,54 @@ class AsymmetricCroCo(nn.Module):
             all_feat2=all2,
             dec1=[strip(t) for t in dec1],
             dec2=[strip(t) for t in dec2],
+            shape=(h, w),
+        )
+
+
+def bank_masks(v: int, lp1: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention masks over a bank of V views of ``lp1`` tokens
+    each (True = attendable), built on the device: view 0's queries
+    [1, lp1, V*lp1] drop view 0's keys; views 1..V-1's queries
+    [1, (V-1)*lp1, V*lp1] drop their own view's keys."""
+    key_view = torch.arange(v * lp1, device=device) // lp1
+    mask1 = (key_view != 0)[None, None, :].expand(1, lp1, -1)
+    q_view = torch.arange(lp1, v * lp1, device=device) // lp1
+    mask2 = q_view[None, :, None] != key_view[None, None, :]
+    return mask1, mask2
+
+
+class AsymmetricCroCoMulti(_CroCoBase):
+    """The V-view backbone: ``dec_blocks`` decodes view 0, the shared
+    ``dec_blocks2`` views 1..V-1, each layer over the bank of every view's
+    pre-layer tokens (``DecoderBlock.forward_multi``)."""
+
+    def forward(self, images: torch.Tensor, intrinsics: torch.Tensor) -> MultiViewBackboneOutput:
+        """images [B, V, H, W, 3]; intrinsics [B, V, 3, 3] (normalised)."""
+        b, v, h, w, _ = images.shape
+        feat, pos, all_feat = self._encode_flat(
+            images.reshape(b * v, h, w, 3), intrinsics.reshape(b * v, 3, 3)
+        )
+        lp1 = feat.shape[1]
+        feat = feat.view(b, v, lp1, -1)
+        pos = pos.reshape(b, v, lp1, 2)
+        bank_pos = pos.reshape(b, v * lp1, 2)
+        mask1, mask2 = bank_masks(v, lp1, images.device)
+
+        f = self.decoder_embed(feat)
+        dec = [feat]
+        for blk1, blk2 in zip(self.dec_blocks, self.dec_blocks2):
+            bank = f.reshape(b, v * lp1, -1)
+            f = torch.cat([
+                blk1.forward_multi(f[:, :1], pos[:, :1], bank, bank_pos, mask1),
+                blk2.forward_multi(f[:, 1:], pos[:, 1:], bank, bank_pos, mask2),
+            ], dim=1)
+            dec.append(f)
+        dec[-1] = self.dec_norm(dec[-1])
+
+        strip = lambda t: t[:, :, :-1]
+        return MultiViewBackboneOutput(
+            feat=strip(feat),
+            all_feat=[strip(t.view(b, v, lp1, -1)) for t in all_feat],
+            dec_feat=[strip(t) for t in dec],
             shape=(h, w),
         )

@@ -102,7 +102,7 @@ class Block(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Self-attention, cross-attention to the other view, MLP."""
+    """Self-attention, cross-attention to the other views, MLP."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  rope_base: Optional[float] = 100.0):
@@ -115,11 +115,27 @@ class DecoderBlock(nn.Module):
         self.cross_attn = CrossAttention(dim, num_heads, rope_base)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, y, xpos, ypos, cross_mask=None):
+    def forward(self, x, y, xpos, ypos):
+        """Two-view layer: x [B, L, C] cross-attends the other view's y."""
         x = x + self.attn(self.norm1(x), xpos)
         y_ = self.norm_y(y)
-        x = x + self.cross_attn(self.norm2(x), y_, y_, xpos, ypos, mask=cross_mask)
+        x = x + self.cross_attn(self.norm2(x), y_, y_, xpos, ypos)
         return x + self.mlp(self.norm3(x))
+
+    def forward_multi(self, x, xpos, bank, bank_pos, cross_mask):
+        """Multi-view layer (``siu3r_tpu/models/backbone.py:MultiViewDecoderBlock``):
+        x [B, Vq, L, C] with xpos [B, Vq, L, 2], self-attention within each
+        view, then every view's queries cross-attend the bank [B, Vk*L, C]
+        (positions [B, Vk*L, 2]) where ``cross_mask`` [1, Vq*L, Vk*L] allows
+        (the plain path: masked attention runs no kernel), then the MLP."""
+        b, vq, l, c = x.shape
+        xf = x.reshape(b * vq, l, c)
+        xf = xf + self.attn(self.norm1(xf), xpos.reshape(b * vq, l, 2))
+        q = xf.reshape(b, vq * l, c)
+        y_ = self.norm_y(bank)
+        q = q + self.cross_attn(self.norm2(q), y_, y_, xpos.reshape(b, vq * l, 2), bank_pos, mask=cross_mask)
+        q = q + self.mlp(self.norm3(q))
+        return q.reshape(b, vq, l, c)
 
 
 def token_positions(h: int, w: int, device=None) -> torch.Tensor:

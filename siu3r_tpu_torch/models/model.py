@@ -1,9 +1,11 @@
-"""SIU3RModel for two views, counterpart of ``siu3r_tpu/models/model.py``.
+"""SIU3RModel, counterpart of ``siu3r_tpu/models/model.py``.
 
-One forward: CroCo backbone -> ViT-Adapter (both views batched) -> DPT pts3d
-and Gaussian-parameter heads -> Gaussian adapter; video Mask2Former -> dense
-panoptic post-process, whose labels (and, on request, per-query class
-confidences) are lifted onto the Gaussians.
+One forward over V views: CroCo backbone (the two-view ``AsymmetricCroCo``
+at V = 2, the shared-bank ``AsymmetricCroCoMulti`` above) -> ViT-Adapter
+(every view batched) -> DPT pts3d and Gaussian-parameter heads (head 1 for
+view 0, the shared head 2 for the others) -> Gaussian adapter; video
+Mask2Former -> dense panoptic post-process, whose labels (and, on request,
+per-query class confidences) are lifted onto the Gaussians.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from siu3r_tpu_torch.config import ModelCfg
 from siu3r_tpu_torch.device import resolve_device
 from siu3r_tpu_torch.gaussians import Gaussians
 from siu3r_tpu_torch.models.adapter import CroCoViTAdapter
-from siu3r_tpu_torch.models.backbone import AsymmetricCroCo
+from siu3r_tpu_torch.models.backbone import AsymmetricCroCo, AsymmetricCroCoMulti
 from siu3r_tpu_torch.models.gaussian_adapter import adapt_gaussians
 from siu3r_tpu_torch.models.heads.dpt import DPTHead, dpt_hooks, postprocess_pts3d
 from siu3r_tpu_torch.models.mask2former.model import SegOutput, VideoMask2Former
@@ -37,8 +39,9 @@ class ModelOutput:
 
 
 class SIU3RModel(nn.Module):
-    """The two-view model on ``device`` (``cuda`` unless the caller names the
-    CPU; raises without a GPU) with a seeded random init.
+    """The model for ``cfg.num_views`` views (at least 2) on ``device``
+    (``cuda`` unless the caller names the CPU; raises without a GPU) with a
+    seeded random init.
 
     The modules are built without storage and materialised on the device, so
     the init runs there, drawn from a ``torch.Generator`` on that device: the
@@ -46,8 +49,8 @@ class SIU3RModel(nn.Module):
 
     def __init__(self, cfg: ModelCfg, device: str | torch.device = "cuda", seed: int = 0):
         super().__init__()
-        if cfg.num_views != 2:
-            raise NotImplementedError("siu3r_tpu_torch runs the two-view model only")
+        if cfg.num_views < 2:
+            raise ValueError(f"the model takes at least 2 views, not {cfg.num_views}")
         if cfg.dtype != "float32":
             raise NotImplementedError("siu3r_tpu_torch computes in float32 only")
         dev = resolve_device(device)
@@ -59,7 +62,7 @@ class SIU3RModel(nn.Module):
 
     def _build_modules(self, cfg: ModelCfg) -> None:
         c = cfg.croco
-        self.backbone = AsymmetricCroCo(c)
+        self.backbone = AsymmetricCroCo(c) if cfg.num_views == 2 else AsymmetricCroCoMulti(c)
         d = c.enc_depth
         self.adapter = CroCoViTAdapter(
             embed_dim=c.enc_embed_dim,
@@ -98,16 +101,27 @@ class SIU3RModel(nn.Module):
         intrinsics: torch.Tensor,
         enable_query_class_logit_lift: bool = False,
     ) -> ModelOutput:
-        """images [B, 2, H, W, 3] in [0, 1]; intrinsics [B, 2, 3, 3] normalised."""
+        """images [B, V, H, W, 3] in [0, 1]; intrinsics [B, V, 3, 3]
+        normalised (V = 2 for the two-view backbone)."""
         b, v, h, w, _ = images.shape
+        two_view = self.cfg.num_views == 2
         out = self.backbone(images, intrinsics)
-        all_feat = [torch.cat([f1, f2], dim=0) for f1, f2 in zip(out.all_feat1, out.all_feat2)]
-        imgs_flat = torch.cat([images[:, 0], images[:, 1]], dim=0)
+        if two_view:
+            all_feat = [torch.cat([f1, f2], dim=0) for f1, f2 in zip(out.all_feat1, out.all_feat2)]
+            imgs_flat = torch.cat([images[:, 0], images[:, 1]], dim=0)
+            dec_per_view = [out.dec1, out.dec2]
+        else:
+            all_feat = [f.reshape(b * v, *f.shape[2:]) for f in out.all_feat]
+            imgs_flat = images.reshape(b * v, h, w, 3)
+            dec_per_view = [[d[:, vi] for d in out.dec_feat] for vi in range(v)]
 
         feats = self.adapter(imgs_flat, all_feat)
-        multi_scale_feat = [torch.stack([f[:b], f[b:]], dim=1) for f in feats]
+        if two_view:
+            multi_scale_feat = [torch.stack([f[:b], f[b:]], dim=1) for f in feats]
+        else:
+            multi_scale_feat = [f.reshape(b, v, *f.shape[1:]) for f in feats]
 
-        gaussians, pts3d = self._gaussians_for_views([out.dec1, out.dec2], images, (h, w))
+        gaussians, pts3d = self._gaussians_for_views(dec_per_view, images, (h, w))
         seg = self.mask2former(multi_scale_feat)
 
         m2f = self.cfg.mask2former

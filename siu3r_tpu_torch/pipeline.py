@@ -144,8 +144,9 @@ class Pipeline:
 
     @torch.inference_mode()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Tuple[ModelOutput, RenderOutput, torch.Tensor]:
-        """batch: ``context_views_images`` [B, 2, H, W, 3],
-        ``context_views_intrinsics`` [B, 2, 3, 3] (normalised),
+        """batch: ``context_views_images`` [B, V, H, W, 3],
+        ``context_views_intrinsics`` [B, V, 3, 3] (normalised; V the
+        model's ``num_views``),
         ``target_views_extrinsics`` [B, N, 4, 4] (camera-to-world),
         ``target_views_intrinsics`` [B, N, 3, 3], on the model's device.
         Returns (model output, render [B, N, ...], qc [B, N, S, C+1, H, W]).
