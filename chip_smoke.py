@@ -69,10 +69,28 @@ Phases, in order; any failure raises and the script exits non-zero:
  13. multi_cli: 8 synthetic images through
      ``python -m siu3r_tpu_torch.cli.inference_multiview`` (its own process)
      to ``output.ply``, read back and checked against the reference schema
-     and this process's forward.
+     and this process's forward;
+ 14. refer_slice: the small config with the language layers on the GPU
+     against the CPU: ``seg_forward``'s logits and word logits,
+     ``refer_eval_step``'s masks, the refer loss and its gradients of the
+     text embedding and the language layers;
+ 15. refer_forward: ``seg_forward`` (no DPT or Gaussian heads) at the full
+     width of configs/scanrefer.yaml, B = 1, 8 expressions of up to 32
+     tokens: launch counts (6 more ``flash_attn`` for the language layers),
+     no host sync, finite outputs, 12 warm forwards timed, then the model
+     kernels held against their plain versions on its own inputs, the
+     language layers' attention shape among them;
+ 16. refer_eval: ``Pipeline.refer_eval_step`` at B = 1, as phase 15;
+ 17. refer_train: ``Pipeline.train_step`` on a refer batch at B = 3 (the
+     config's loader batch), 8 objects: launch counts, a finite word-match
+     loss, the text embedding and language layers moved, the frozen encoder
+     unchanged, 6 steps timed with their host syncs and peak memory;
+ 18. refer_cli: ``python -m siu3r_tpu_torch.cli.validate_refer`` (its own
+     process) on a synthetic ScanRefer root at 256x256 with this process's
+     weights, its JSON held against this process's refer eval step.
 It then prints the kernels' JSON line (each kernel with the two-view path's
-launches and times and, under "multi_view", the 8-view path's) and, last,
-the device line.
+launches and times and, under "multi_view" and "refer", the 8-view path's
+and the refer forward's) and, last, the device line.
 ``--phases`` runs the named phases only (after 1 and 2) and prints neither.
 Imports nothing of JAX or of the JAX package.
 """
@@ -404,6 +422,8 @@ ATTN_EDGE = {
     "nq17_d32_rope": (2, 4, 17, 100, 32, True, None),
     "first_tile_masked": (2, 4, 65, 200, 32, False, "first_tile_masked"),
     "first_tile_masked_rope": (2, 3, 40, 130, 64, True, "first_tile_masked"),
+    # the refer train step's language layers: 8 words against 100 queries at B = 3
+    "language_b3": (3, 8, 8, 100, 32, False, None),
 }
 # (B, Lq, H, D, P, levels, loc lo, loc hi, integer points)
 MSDA_MAIN = {
@@ -1063,9 +1083,11 @@ def phase_autograd() -> None:
     q, k, v, qrope, krope, _ = _attn_inputs(ATTN_MAIN["encoder"][0], gen, False)
     compare("flash_attn_rope", lambda q, k, v: flash_attn(q, k, v, 0.125, qrope, krope),
             lambda q, k, v: flash_attn_plain(q, k, v, 0.125, qrope, krope), (q, k, v), 1e-4)
-    q, k, v, _, _, _ = _attn_inputs(ATTN_MAIN["m2f_query_self"][0], gen, False)
-    compare("flash_attn", lambda q, k, v: flash_attn(q, k, v, 32 ** -0.5),
-            lambda q, k, v: flash_attn_plain(q, k, v, 32 ** -0.5), (q, k, v), 1e-4)
+    for name, (case, cross) in (("flash_attn", (ATTN_MAIN["m2f_query_self"][0], False)),
+                                ("flash_attn language", (ATTN_EDGE["language_b3"], True))):
+        q, k, v, _, _, _ = _attn_inputs(case, gen, cross)
+        compare(name, lambda q, k, v: flash_attn(q, k, v, 32 ** -0.5),
+                lambda q, k, v: flash_attn_plain(q, k, v, 32 ** -0.5), (q, k, v), 1e-4)
     case = MSDA_MAIN["adapter"][0]
     value, loc, aw = _msda_inputs(case, gen)
     compare("msda", lambda a, b, c: msda(a, case[5], b, c), lambda a, b, c: msda_plain(a, case[5], b, c),
@@ -1231,7 +1253,11 @@ def phase_multi_slice() -> None:
 # ---------------------------------------------------------------- phase 5
 
 
-def expected_launches(cfg) -> dict:
+def expected_launches(cfg, words: bool = False) -> dict:
+    """Kernel launches of one forward of ``cfg``'s model, with the language
+    layers where ``words`` are given."""
+    from siu3r_tpu_torch.models.mask2former.model import LANG_LAYERS
+
     c, m = cfg.croco, cfg.mask2former
     # per decoder block of each of the two decoders: self-attention, and in
     # the two-view backbone the cross-attention to the other view (the
@@ -1241,8 +1267,9 @@ def expected_launches(cfg) -> dict:
     return {
         # encoder self-attention per block (every view in one launch), then the decoders
         "flash_attn_rope": c.enc_depth + per_dec_block * c.dec_depth,
-        # Mask2Former query self-attention per decoder layer
-        "flash_attn": m.decoder_layers - 1,
+        # Mask2Former query self-attention per decoder layer, and the words'
+        # cross-attention to the queries per language layer
+        "flash_attn": m.decoder_layers - 1 + (LANG_LAYERS if words else 0),
         # adapter: 4 interactions + 2 extra extractors; pixel decoder: one per encoder layer
         "msda": 4 + 2 + m.encoder_layers,
     }
@@ -1274,12 +1301,59 @@ def _device_breakdown(run, iters: int) -> tuple[float, list]:
     return total, rows[:20]
 
 
-def _view_inputs(views: int, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """Seeded images [1, views, 256, 256, 3] and the CLI's default intrinsics."""
+def _view_inputs(views: int, seed: int = 0, batch: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded images [batch, views, 256, 256, 3] and the CLI's default intrinsics."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    images = torch.rand(1, views, 256, 256, 3, device="cuda", generator=gen)
+    images = torch.rand(batch, views, 256, 256, 3, device="cuda", generator=gen)
     k = torch.tensor([[318 / 256, 0, 0.5], [0, 318 / 256, 0.5], [0, 0, 1]], device="cuda")
-    return images, k.expand(1, views, 3, 3).contiguous()
+    return images, k.expand(batch, views, 3, 3).contiguous()
+
+
+def _counted_run(phase: str, run, expected: dict):
+    """One warm-up, then one ``run`` with the launch counts set to 0 just
+    before it and read just after, under a mode in which a host sync (a copy
+    to or from the host) raises; fails unless the counts are ``expected``
+    and every MSDA launch took the staged kernel. Returns the run's output."""
+    from siu3r_tpu_torch.kernels import _build
+
+    run()  # warm-up: cuDNN algorithm choice, allocator
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    out = run()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if launches != expected:
+        raise AssertionError(f"{phase}: launches {launches} != expected {expected}")
+    check_msda_variants(expected["msda"])
+    return out
+
+
+def _timed_runs(run, n: int) -> dict:
+    """``n`` warm runs, each between two synchronisations: wall median, min
+    and max, runs per second, peak memory; then the device busy time per run
+    from the profiler's trace of 3 runs, its idle share and largest
+    entries."""
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    device_ms, top = _device_breakdown(run, 3)
+    med = statistics.median(times)
+    return dict(median_s=med, min_s=min(times), max_s=max(times), per_s=1.0 / med, peak_gib=peak / 2**30,
+                device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=top, runs=n)
+
+
+def _timing_text(t: dict, what: str) -> str:
+    return (f"median of {t['runs']} warm {what} {t['median_s'] * 1e3:.2f} ms (min {t['min_s'] * 1e3:.2f}, max "
+            f"{t['max_s'] * 1e3:.2f}) = {t['per_s']:.3f} per s, peak memory {t['peak_gib']:.3f} GiB; device busy "
+            f"{t['device_ms']:.2f} ms each, idle share {t['idle_share']:.3f}")
 
 
 def two_view_cfg():
@@ -1338,10 +1412,11 @@ def _distinct(calls: list, key) -> dict:
     return out
 
 
-def _check_model_kernels(phase: str, run, iters: int) -> dict:
+def _check_model_kernels(phase: str, run, iters: int, shapes: dict | None = None) -> dict:
     """The attention and MSDA kernels held against their plain versions on
     the inputs one ``run`` of the model gives them: each distinct shape
-    checked and timed once, its times counted once per launch."""
+    checked and timed once, its times counted once per launch. ``shapes``,
+    if given, receives each attention shape's check by its case."""
     import siu3r_tpu_torch.kernels.flash_attention as FA
     import siu3r_tpu_torch.models.adapter as A
 
@@ -1357,6 +1432,8 @@ def _check_model_kernels(phase: str, run, iters: int) -> dict:
         inputs = (c["q"], c["k"], c["v"], c["qrope"], c["krope"], c["kv_mask"])
         res = check_attention(f"{phase} x{n}", case, iters, gen, inputs=inputs, scale=c["scale"])
         _add_check(per_kernel, kernel, res, n)
+        if shapes is not None:
+            shapes[case] = dict(res, launches=n)
     for (vs, ls), (c, n) in _distinct(msda_calls, lambda c: (tuple(c["value"].shape),
                                                              tuple(c["sampling_locations"].shape))).items():
         case = (vs[0], ls[1], vs[2], vs[3], ls[4], tuple(map(tuple, c["spatial_shapes"])), None, None, None)
@@ -1406,7 +1483,6 @@ def _forward(phase: str, cfg) -> dict:
     sync, shapes and finite outputs, then 12 warm forwards timed. With more
     than two views, also the model kernels held against their plain versions
     on the forward's own inputs and the bank attention's device time."""
-    from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.models.model import build_model
 
     views = cfg.num_views
@@ -1416,19 +1492,8 @@ def _forward(phase: str, cfg) -> dict:
     run = lambda: model(images, intr, enable_query_class_logit_lift=True)
 
     with torch.inference_mode():
-        run()  # warm-up: cuDNN algorithm choice, allocator
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        # a host sync inside the forward (a copy to or from the host) raises
-        torch.cuda.set_sync_debug_mode("error")
-        out = run()
-        torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        launches = dict(_build.launch_counts)
         expected = expected_launches(cfg)
-        if launches != expected:
-            raise AssertionError(f"{phase}: launches {launches} != expected {expected}")
-        check_msda_variants(expected["msda"])
+        out = _counted_run(phase, run, expected)
         g = out.gaussians
         hw = views * 256 * 256
         m2f = cfg.mask2former
@@ -1445,33 +1510,16 @@ def _forward(phase: str, cfg) -> dict:
         if int(labels.min()) < 0 or int(labels.max()) > cfg.mask2former.num_labels:
             raise AssertionError(f"{phase}: semantic labels out of range")
         del out, g, labels
-
-        times = []
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(12):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated()
-        device_ms, top = _device_breakdown(run, 3)
-    med = statistics.median(times)
-    res = dict(params=n_params, launches=launches, median_s=med, min_s=min(times), max_s=max(times),
-               passes_per_s=1.0 / med, peak_gib=peak / 2**30, device_ms=device_ms,
-               idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=top)
-    log(phase, f"ViT-L {views}-view 256x256 B=1 fp32, {n_params} params: launches {launches} "
-               f"(expected {expected}), no host sync, outputs finite; median of {len(times)} warm forwards "
-               f"{med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
-               f"{1.0 / med:.3f} passes/s, peak memory {peak / 2**30:.3f} GiB; device busy "
-               f"{device_ms:.2f} ms per forward, idle share {res['idle_share']:.3f}")
-    for name, ms in top[:8]:
+        res = dict(params=n_params, launches=expected, **_timed_runs(run, 12))
+    log(phase, f"ViT-L {views}-view 256x256 B=1 fp32, {n_params} params: launches {expected} (expected), "
+               f"no host sync, outputs finite; {_timing_text(res, 'forwards')}")
+    for name, ms in res["top_device_ms"][:8]:
         log(phase, f"  device {ms:8.3f} ms  {name[:100]}")
     if views > 2:
         with torch.inference_mode():
             res["kernels"] = _check_model_kernels(phase, run, 20)
         res["bank"] = bank = _bank_attention(phase, run, cfg.croco.dec_depth, 20)
-        bank["fwd_share"] = bank["fwd_ms"] / device_ms
+        bank["fwd_share"] = bank["fwd_ms"] / res["device_ms"]
         log(phase, f"bank attention ({bank['calls']} calls, the plain path): {bank['fwd_ms']:.3f} ms per forward "
                    f"= {bank['fwd_share']:.4f} of the forward's device time; forward and backward "
                    f"{bank['train_ms']:.3f} ms per train step; largest logits {bank['largest_logits_mb']:.1f} MB")
@@ -1508,7 +1556,6 @@ def _eval(phase: str, cfg, n_target: int) -> dict:
     ``n_target`` target views: launch counts, no host sync, shapes, finite
     and covered renders, then 12 warm steps timed; the binning and raster
     kernels held against their plain versions on the step's own inputs."""
-    from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.pipeline import Pipeline, lift_rendered_qc
 
     pipe = Pipeline(cfg, device="cuda", seed=0)
@@ -1520,20 +1567,10 @@ def _eval(phase: str, cfg, n_target: int) -> dict:
     batch = _eval_batch(images, intr, _target_views(means, n_target, views))
     run = lambda: pipe.eval_step(batch)
 
-    run()  # warm-up
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    torch.cuda.set_sync_debug_mode("error")  # a host sync inside the step raises
-    out, render, qc = run()
-    torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
     # one binning for every target view; one raster launch for the RGB set
     # (C = 3) and one for the 16 query-class channels
     expected = {**expected_launches(mcfg), "bin": 1, "raster": 2}
-    if launches != expected:
-        raise AssertionError(f"{phase}: eval step launches {launches} != expected {expected}")
-    check_msda_variants(expected["msda"])
+    out, render, qc = _counted_run(phase, run, expected)
     n_slots, n_cls = mcfg.mask2former.max_lift_queries, mcfg.mask2former.num_labels + 1
     shapes = {"color": (render.color, (1, n_target, 256, 256, 3)), "depth": (render.depth, (1, n_target, 256, 256)),
               "alpha": (render.alpha, (1, n_target, 256, 256)),
@@ -1549,26 +1586,11 @@ def _eval(phase: str, cfg, n_target: int) -> dict:
         raise AssertionError(f"{phase}: lifted semantic ids out of shape or range")
     del out, render, qc, sem, ins
 
-    times = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(12):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated()
-    device_ms, top = _device_breakdown(run, 3)
-    med = statistics.median(times)
-    res = dict(launches=launches, median_s=med, min_s=min(times), max_s=max(times), steps_per_s=1.0 / med,
-               peak_gib=peak / 2**30, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3),
-               top_device_ms=top, mean_alpha=coverage)
+    res = dict(launches=expected, mean_alpha=coverage, **_timed_runs(run, 12))
     log(phase, f"Pipeline.eval_step, ViT-L {views}-view 256x256 B=1 fp32 + {n_target} target views: launches "
-                f"{launches} (expected), no host sync, outputs finite, mean alpha {coverage:.3f}; median of "
-                f"{len(times)} warm steps {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
-                f"{max(times) * 1e3:.2f}) = {1.0 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; "
-                f"device busy {device_ms:.2f} ms per step, idle share {res['idle_share']:.3f}")
-    for name, ms in top[:12]:
+                f"{expected} (expected), no host sync, outputs finite, mean alpha {coverage:.3f}; "
+                f"{_timing_text(res, 'steps')}")
+    for name, ms in res["top_device_ms"][:12]:
         log(phase, f"  device {ms:8.3f} ms  {name[:100]}")
 
     # the binning and raster kernels on the step's own inputs
@@ -1837,7 +1859,7 @@ def _train(phase: str, cfg, n_target: int, steps: int) -> dict:
     frame()
     device_ms, top = _device_breakdown(run, 1)
     med = statistics.median(times)
-    res = dict(launches=launches, median_s=med, min_s=min(times), max_s=max(times), steps_per_s=1.0 / med,
+    res = dict(launches=launches, median_s=med, min_s=min(times), max_s=max(times), per_s=1.0 / med,
                peak_gib=peak / 2**30, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3),
                top_device_ms=top, host_syncs=n_syncs, sync_sources=sync_sources, lap_syncs=lap_syncs,
                losses=values, moved=moved, step=pipe.optimizer.count, mean_alpha=list(alphas),
@@ -2115,6 +2137,339 @@ def check_viewer(ply_path: Path, orbit_dir: Path) -> None:
                   f"{launches}): " + ", ".join(f"{m} mean {v:.2f} in {t * 1e3:.1f} ms" for m, (v, t) in served.items()))
 
 
+# ---------------------------------------------------------------- phases 14-18: the refer path
+
+REFER_WORDS, REFER_TOKENS = 8, 32  # configs/scanrefer.yaml's max_objects; the ScanRefer dataset's max_tokens
+REFER_TRAIN_BATCH = 3  # configs/scanrefer.yaml's loader batch, on one card
+REFER_CLI_ITEMS = 2
+
+
+def refer_cfg():
+    """The repo's referring-expression config, ``configs/scanrefer.yaml``
+    (ViT-L, two views at 256x256, 100 queries, vocabulary 49408), with the
+    ScanNet classes."""
+    from siu3r_tpu_torch.config import bind_scannet_classes, load_config
+
+    return bind_scannet_classes(load_config(Path(__file__).resolve().parent / "configs" / "scanrefer.yaml"))
+
+
+def _refer_batch(images, intr, n_objects: int, n_tokens: int, vocab: int, n_classes: int, seed: int) -> dict:
+    """A ScanRefer batch on the images' device: seeded binary masks, every
+    object valid and referred to by one expression of 1 to ``n_tokens``
+    tokens (0 pads the rest), word i for object i."""
+    b, v, h, w, _ = images.shape
+    dev = images.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(1, n_tokens + 1, (b, n_objects, 1), device=dev, generator=gen)
+    tokens = torch.randint(1, vocab, (b, n_objects, n_tokens), device=dev, generator=gen, dtype=torch.int32)
+    return {
+        "context_views_images": images,
+        "context_views_intrinsics": intr,
+        "gt_masks": (torch.rand(b, n_objects, v, h, w, device=dev, generator=gen) > 0.7).float(),
+        "gt_classes": torch.randint(0, n_classes, (b, n_objects), device=dev, generator=gen, dtype=torch.int32),
+        "gt_valid": torch.ones(b, n_objects, dtype=torch.bool, device=dev),
+        "text_token": torch.where(torch.arange(n_tokens, device=dev) < lengths, tokens, torch.zeros_like(tokens)),
+    }
+
+
+def _excess(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| beyond SLICE_RTOL x |b|, in float64 on the CPU."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return ((a - b).abs() - SLICE_RTOL * b.abs()).max().item()
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def phase_refer_slice() -> None:
+    """The small config with the language layers on the GPU (kernels) against
+    the same weights on the CPU (plain versions): ``seg_forward``'s logits
+    and word logits, ``refer_eval_step``'s masks, and the refer loss with
+    its gradients of the text embedding and the language layers."""
+    from siu3r_tpu_torch.config import PipelineCfg, RootCfg
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    mcfg = _small_cfg(2)
+    mcfg.mask2former.train_refer_segmentation = True
+    mcfg.mask2former.text_vocab_size = 64
+    root = RootCfg(pipeline=PipelineCfg(model=mcfg))
+    gpu = Pipeline(root, device="cuda", seed=7).init_train(steps_per_epoch=10, lpips_enabled=False)
+    cpu = Pipeline(root, device="cpu", seed=0).init_train(steps_per_epoch=10, lpips_enabled=False)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.rand(1, 2, 64, 64, 3).astype(np.float32))
+    intr = torch.tensor([[1.24, 0, 0.5], [0, 1.24, 0.5], [0, 0, 1]]).expand(1, 2, 3, 3).contiguous()
+    batch = _refer_batch(images, intr, 4, 6, 64, mcfg.mask2former.num_labels, seed=2)
+    gbatch = {k: x.cuda() for k, x in batch.items()}
+    inputs = lambda bt: (bt["context_views_images"], bt["context_views_intrinsics"])
+
+    with torch.inference_mode():
+        sg, _ = gpu.model.eval().seg_forward(*inputs(gbatch), text_tokens=gbatch["text_token"])
+        sc, _ = cpu.model.eval().seg_forward(*inputs(batch), text_tokens=batch["text_token"])
+    worst = {}
+    for key in ("class_queries_logits", "masks_queries_logits", "word_logits"):
+        a = getattr(sg, key)
+        worst[key] = _excess(a, getattr(sc, key))
+        if not bool(torch.isfinite(a).all()) or worst[key] > SLICE_ATOL:
+            raise AssertionError(f"refer_slice: seg_forward {key} differs by {worst[key]} beyond rtol {SLICE_RTOL} "
+                                 f"atol {SLICE_ATOL}")
+    mg, wg = gpu.refer_eval_step(gbatch)
+    mc, _ = cpu.refer_eval_step(batch)
+    agree = (mg.cpu() == mc).float().mean().item()
+    if agree < LABEL_AGREEMENT or tuple(mg.shape) != (1, 4, 2, 64, 64):
+        raise AssertionError(f"refer_slice: eval masks {tuple(mg.shape)} agree on {agree:.5f} < {LABEL_AGREEMENT}")
+
+    coords = torch.rand(1, 1024, 2, generator=torch.Generator().manual_seed(3))
+    lg, _ = gpu.refer_loss_fn(gbatch, None, injected_coords=coords.cuda())
+    lc, _ = cpu.refer_loss_fn(batch, None, injected_coords=coords)
+    lg.backward()
+    lc.backward()
+    lg, lc = float(lg.detach()), float(lc.detach())
+    if not math.isfinite(lg) or abs(lg - lc) - SLICE_RTOL * abs(lc) > SLICE_ATOL:
+        raise AssertionError(f"refer_slice: refer loss {lg} on cuda vs {lc} on cpu")
+    cpu_params = dict(cpu.model.named_parameters())
+    errs = {}
+    for name, p in gpu.model.named_parameters():
+        if name.startswith(("text_embed.", "mask2former.lang_")):
+            ref = cpu_params[name].grad
+            errs[name] = _rel_l2(p.grad, ref)
+            if ref.abs().max().item() == 0.0 or errs[name] > GRAD_REL_L2:
+                raise AssertionError(f"refer_slice: gradient {name} relative L2 error {errs[name]} > {GRAD_REL_L2}, "
+                                     "or zero")
+    log("refer_slice", f"small refer config on cuda (kernels) vs cpu (plain): seg_forward within rtol {SLICE_RTOL} "
+                       f"atol {SLICE_ATOL} (worst excess {worst}); refer_eval_step masks agree {agree:.5f}; refer "
+                       f"loss {lg:.5f} vs {lc:.5f}; gradients of the {len(errs)} tensors of the text embedding and the "
+                       f"language layers within relative L2 {GRAD_REL_L2} (worst {max(errs.values()):.3g})")
+
+
+def _refer_inputs(cfg, batch: int, seed: int) -> dict:
+    m2f = cfg.pipeline.model.mask2former
+    images, intr = _view_inputs(2, seed=seed, batch=batch)
+    return _refer_batch(images, intr, REFER_WORDS, REFER_TOKENS, m2f.text_vocab_size, m2f.num_labels, seed)
+
+
+def phase_refer_forward() -> dict:
+    """``seg_forward`` at the full width of configs/scanrefer.yaml, B = 1,
+    8 expressions of up to 32 tokens: launch counts (the 6 language layers
+    add 6 ``flash_attn`` launches; no render), no host sync, finite outputs
+    of the expected shapes, 12 warm forwards timed; then the model kernels
+    held against their plain versions on the forward's own inputs, the
+    language layers' attention shape among them."""
+    from siu3r_tpu_torch.models.model import build_model
+
+    cfg = refer_cfg()
+    mcfg = cfg.pipeline.model
+    model = build_model(mcfg, device="cuda", seed=0)
+    batch = _refer_inputs(cfg, 1, seed=4)
+    run = lambda: model.seg_forward(batch["context_views_images"], batch["context_views_intrinsics"],
+                                    text_tokens=batch["text_token"])
+    expected = expected_launches(mcfg, words=True)
+    shapes = {}
+    with torch.inference_mode():
+        seg, post = _counted_run("refer_forward", run, expected)
+        q, n_cls = mcfg.mask2former.num_queries, mcfg.mask2former.num_labels + 1
+        want = {"word_logits": (seg.word_logits, (1, REFER_WORDS, q)),
+                "class_logits": (seg.class_queries_logits, (1, q, n_cls)),
+                "mask_logits": (seg.masks_queries_logits, (1, q, 2, 64, 64)),
+                "segmentation": (post["segmentation"], (1, 2, 256, 256))}
+        for name, (t, shape) in want.items():
+            if tuple(t.shape) != shape or not bool(torch.isfinite(t.float()).all()):
+                raise AssertionError(f"refer_forward: {name} shape {tuple(t.shape)} (expected {shape}) or not finite")
+        kept = int(post["keep"].sum())
+        del seg, post
+        res = dict(launches=expected, kept=kept, **_timed_runs(run, 12))
+        log("refer_forward", f"seg_forward, ViT-L 2-view 256x256 B=1 fp32, {REFER_WORDS} expressions of up to "
+                             f"{REFER_TOKENS} tokens: launches {expected} (expected), no host sync, outputs finite "
+                             f"({kept} queries kept); {_timing_text(res, 'forwards')}")
+        for name, ms in res["top_device_ms"][:8]:
+            log("refer_forward", f"  device {ms:8.3f} ms  {name[:100]}")
+        res["kernels"] = _check_model_kernels("refer_forward", run, 20, shapes)
+    language = [(case, r) for case, r in shapes.items() if case[2] == REFER_WORDS]
+    if len(language) != 1 or language[0][1]["launches"] != 6:
+        raise AssertionError(f"refer_forward: language-layer attention shapes {[c for c, _ in language]}")
+    case, lang = language[0]
+    res["language_shape"] = dict(case=list(case[:5]), **{k: lang[k] for k in (
+        "launches", "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_fp32_ms", "blocks")})
+    log("refer_forward", f"the language layers' attention {case[:5]}: max_abs_err {lang['err']:.3g}, "
+                         f"{lang['ms']:.5f} ms a launch against a bound of {lang['bound_ms']:.5f} "
+                         f"({lang['bound_by']}) and SDPA's {lang['library_ms']:.5f}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_refer_eval() -> dict:
+    """``Pipeline.refer_eval_step`` at full width, B = 1 (the batch of
+    ``cli/validate_refer.py``): launch counts, no host sync, the masks'
+    shape, then 12 warm steps timed."""
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    cfg = refer_cfg()
+    pipe = Pipeline(cfg, device="cuda", seed=0)
+    batch = _refer_inputs(cfg, 1, seed=5)
+    run = lambda: pipe.refer_eval_step(batch)
+    expected = expected_launches(cfg.pipeline.model, words=True)
+    masks, word_logits = _counted_run("refer_eval", run, expected)
+    q = cfg.pipeline.model.mask2former.num_queries
+    if (tuple(masks.shape) != (1, REFER_WORDS, 2, 256, 256) or masks.dtype != torch.bool
+            or tuple(word_logits.shape) != (1, REFER_WORDS, q) or not bool(torch.isfinite(word_logits).all())):
+        raise AssertionError(f"refer_eval: masks {tuple(masks.shape)} {masks.dtype}, word logits "
+                             f"{tuple(word_logits.shape)} or not finite")
+    cover = masks.float().mean().item()
+    res = dict(launches=expected, mask_share=cover, **_timed_runs(run, 12))
+    log("refer_eval", f"Pipeline.refer_eval_step, ViT-L 2-view 256x256 B=1 fp32, {REFER_WORDS} expressions: launches "
+                      f"{expected} (expected), no host sync, masks [1, {REFER_WORDS}, 2, 256, 256] ({cover:.3f} "
+                      f"of pixels set); {_timing_text(res, 'steps')}")
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_refer_train() -> dict:
+    """``Pipeline.train_step`` on a refer batch at full width, B = 3 (the
+    loader batch of configs/scanrefer.yaml; its 8-device data parallelism
+    waits for the distributed slice), 8 objects, expressions of up to 32
+    tokens: launch counts, a finite word-match loss, the text embedding and
+    the language layers moved, the frozen encoder unchanged; then 6 steps
+    timed with their host syncs, device busy time and peak memory."""
+    from siu3r_tpu_torch.kernels import _build
+    from siu3r_tpu_torch.pipeline import Pipeline
+    from siu3r_tpu_torch.train.optimizer import group_of
+
+    cfg = refer_cfg()
+    pipe = Pipeline(cfg, device="cuda", seed=0).init_train(steps_per_epoch=1000, lpips_enabled=False)
+    batch = _refer_inputs(cfg, REFER_TRAIN_BATCH, seed=6)
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    run = lambda: pipe.train_step(batch, step_gen)
+    params = dict(pipe.model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+
+    for _ in range(2):  # warm-up: cuDNN algorithm choice, allocator
+        run()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    n_syncs, sync_sources = _count_syncs(run)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    expected = expected_launches(cfg.pipeline.model, words=True)
+    if launches != expected:
+        raise AssertionError(f"refer_train: train step launches {launches} != expected {expected}")
+    check_msda_variants(expected["msda"])
+    lap_syncs = sum(n for where, n in sync_sources.items() if "lap.py:" in where)
+    values = {key: float(x) for key, x in run().items()}
+    if set(values) != {"word_match", "total"} or not all(math.isfinite(x) for x in values.values()):
+        raise AssertionError(f"refer_train: losses {values}")
+    moved = {}
+    for n, p in params.items():
+        part = ("frozen" if group_of(n, True) == "frozen" else "lang" if n.startswith("mask2former.lang_")
+                else n.split(".")[0])
+        moved[part] = max(moved.get(part, 0.0), (p.detach() - before[n]).abs().max().item())
+    del before
+    if moved["frozen"] != 0.0:
+        raise AssertionError(f"refer_train: the frozen encoder moved by {moved['frozen']}")
+    for part in ("text_embed", "lang", "mask2former", "adapter"):
+        if not moved.get(part, 0.0) > 0.0:
+            raise AssertionError(f"refer_train: {part} did not move: {moved}")
+    res = dict(launches=launches, losses=values, moved=moved, host_syncs=n_syncs, lap_syncs=lap_syncs,
+               sync_sources=sync_sources, step=pipe.optimizer.count, **_timed_runs(run, 6))
+    log("refer_train", f"Pipeline.train_step on a refer batch, ViT-L 2-view 256x256 B={REFER_TRAIN_BATCH} fp32, "
+                       f"{REFER_WORDS} objects: launches {launches} (expected), word_match {values['word_match']:.4f}, "
+                       f"frozen encoder unchanged, moved {({k: round(v, 8) for k, v in moved.items()})}; host syncs "
+                       f"per step {n_syncs} (the LAP's {lap_syncs}; sources {sync_sources}); "
+                       f"{_timing_text(res, 'steps')}")
+    for name, ms in res["top_device_ms"][:12]:
+        log("refer_train", f"  device {ms:8.3f} ms  {name[:100]}")
+    del pipe, params, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+# the synthetic ScanRefer scene: (instance id, panoptic class) of each object,
+# and the val pairs (context views, referred objects) that phase refer_cli reads
+REFER_OBJECTS = ((7, 5), (9, 6), (11, 7), (13, 3))
+REFER_PAIRS = (((0, 10), (7, 9, 11)), ((2, 12), (9, 13)))
+
+
+def _scanrefer_root(root: Path, vocab: int, seed: int) -> None:
+    """A ScanRefer val split at 256x256 in the layout the dataset reads
+    (tests/test_refer.py's): one scene of 14 frames with colour, depth and
+    panoptic PNGs (a wall and four objects), ``val_refer_seg_data.json`` with
+    one or two tokenised expressions an object, ``val_refer_pair.json``."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    scan = root / "val" / "scene0000_00"
+    for sub in ("color", "depth", "panoptic"):
+        (scan / sub).mkdir(parents=True)
+    np.savetxt(scan / "intrinsic.txt", np.array([[318.0, 0, 128], [0, 318, 128], [0, 0, 1]]))
+    n, s = 14, 256
+    for i in range(n):
+        Image.fromarray((rng.rand(s, s, 3) * 255).astype(np.uint8)).save(scan / "color" / f"{i}.jpg")
+        Image.fromarray((rng.rand(s, s) * 4000).astype(np.uint16)).save(scan / "depth" / f"{i}.png")
+        seg = np.full((s, s), 1000, np.int64)  # the wall, instance 0
+        shift = 4 * i
+        boxes = ((0, 256, 128, 256), (160, 256, 0, 64), (16, 96, 16 + shift, 112 + shift), (180, 240, 80, 120))
+        for (inst, cls), (y0, y1, x0, x1) in zip(REFER_OBJECTS, boxes):
+            seg[y0:y1, x0:x1] = cls * 1000 + inst
+        Image.fromarray(np.stack([seg % 256, (seg // 256) % 256, seg // 65536], -1).astype(np.uint8)).save(
+            scan / "panoptic" / f"{i}.png")
+    tokens = lambda: rng.randint(1, vocab, rng.randint(3, REFER_TOKENS + 1)).tolist()
+    objects = {str(inst): {"panoptic_label_id": cls, "text": [f"object {inst}", f"the object {inst}"],
+                           "text_token": [tokens(), tokens()]} for inst, cls in REFER_OBJECTS}
+    frames = {str(i): [inst for inst, _ in REFER_OBJECTS] for i in range(n)}
+    (root / "val_refer_seg_data.json").write_text(json.dumps({"scene0000_00": {"frame2object": frames,
+                                                                                "objects": objects}}))
+    (root / "val_refer_pair.json").write_text(json.dumps([
+        {"scan": "scene0000_00", "context_views_id": list(views), "context_objects": list(objs)}
+        for views, objs in REFER_PAIRS]))
+
+
+def phase_refer_cli() -> dict:
+    """``python -m siu3r_tpu_torch.cli.validate_refer`` (its own process) on a
+    synthetic ScanRefer root at 256x256 with this process's weights
+    (``--ckpt``), its JSON held against this process's ``refer_eval_step``
+    and ``referred_mask_iou`` on the same items."""
+    from siu3r_tpu_torch.cli import validate_refer
+    from siu3r_tpu_torch.cli.train import build_dataset
+    from siu3r_tpu_torch.eval.metrics import referred_mask_iou
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = refer_cfg()
+        root = Path(tmp) / "scanrefer"
+        _scanrefer_root(root, cfg.pipeline.model.mask2former.text_vocab_size, seed=9)
+        cfg.datamodule.dataset_cfg.root = str(root)
+        pipe = Pipeline(cfg, device="cuda", seed=3)  # not the CLI's own seed: the weights must come from --ckpt
+        weights = Path(tmp) / "weights.pt"
+        torch.save(pipe.model.state_dict(), weights)
+        cli = subprocess.run([sys.executable, "-m", "siu3r_tpu_torch.cli.validate_refer", "--config",
+                              str(here / "configs" / "scanrefer.yaml"), "--ckpt", str(weights), "--limit",
+                              str(REFER_CLI_ITEMS), f"datamodule.dataset_cfg.root={root}"],
+                             cwd=here, capture_output=True, text=True, timeout=600)
+        if cli.returncode != 0:
+            raise RuntimeError(f"validate_refer exited {cli.returncode}:\n{cli.stderr[-4000:]}")
+        got = json.loads(cli.stdout[cli.stdout.index("{"):])
+        dataset = build_dataset(cfg, train=False)
+        ious = []
+        for i in range(REFER_CLI_ITEMS):
+            item = dataset[i]
+            masks, _ = pipe.refer_eval_step({k: torch.from_numpy(item[k])[None].cuda()
+                                             for k in validate_refer.BATCH_KEYS})
+            ious.extend(referred_mask_iou(masks[0].cpu().numpy(), item["gt_masks"], item["gt_valid"])[1].tolist())
+    want = dict(refer_miou=float(np.mean(ious)), num_referred=len(ious))
+    if got["num_referred"] != want["num_referred"] or abs(got["refer_miou"] - want["refer_miou"]) > 1e-3:
+        raise AssertionError(f"refer_cli: validate_refer gave {got}, this process {want}")
+    log("refer_cli", f"siu3r_tpu_torch.cli.validate_refer on {REFER_CLI_ITEMS} synthetic ScanRefer items at "
+                     f"256x256 with --ckpt: {got}; this process's refer_eval_step: refer_miou "
+                     f"{want['refer_miou']:.6f} over {want['num_referred']} referred objects")
+    del pipe
+    torch.cuda.empty_cache()
+    return got
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2130,7 +2485,8 @@ PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "ras
           "autograd": phase_autograd, "slice": phase_slice_check, "forward": phase_forward, "eval": phase_eval,
           "train": phase_train, "cli": phase_cli, "multi_slice": phase_multi_slice,
           "multi_forward": phase_multi_forward, "multi_eval": phase_multi_eval, "multi_train": phase_multi_train,
-          "multi_cli": phase_multi_cli}
+          "multi_cli": phase_multi_cli, "refer_slice": phase_refer_slice, "refer_forward": phase_refer_forward,
+          "refer_eval": phase_refer_eval, "refer_train": phase_refer_train, "refer_cli": phase_refer_cli}
 
 
 def _raster_sum(checks: list) -> dict:
@@ -2175,6 +2531,11 @@ def main(argv=None) -> None:
     mev = phase_multi_eval()
     mtr = phase_multi_train()
     phase_multi_cli()
+    phase_refer_slice()
+    rfwd = phase_refer_forward()
+    rev = phase_refer_eval()
+    rtr = phase_refer_train()
+    rcli = phase_refer_cli()
 
     # per kernel: the two-view path's launches and times (model kernels per
     # forward, at its shapes; render kernels per eval step and kernel 6 per
@@ -2187,12 +2548,20 @@ def main(argv=None) -> None:
              "raster_bwd": mtr["raster_bwd"]}
     multi_launches = {**mfwd["launches"], "bin": mev["launches"]["bin"], "raster": mev["launches"]["raster"],
                       "raster_bwd": mtr["launches"]["raster_bwd"]}
-    worst = {**{k: two_view[k]["err"] for k in per_kernel}, "bin": render_err["bin"],
+    worst = {**{k: max(two_view[k]["err"], rfwd["kernels"][k]["err"]) for k in per_kernel}, "bin": render_err["bin"],
              "raster": max(render_err["raster"], two_view["raster"]["err"]),
              "raster_bwd": max(bwd_err, tr["raster_bwd"]["err"])}
+    # the refer path's: the model kernels per refer forward on its own inputs
+    # (the language layers' attention shape also on its own); no render
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         acc, macc = two_view[name], multi[name]
+        racc = rfwd["kernels"].get(name)
+        refer = {"launches": rfwd["launches"].get(name, 0),
+                 **{k: None if racc is None else racc.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                                        "library_ms")}}
+        if name == "flash_attn":
+            refer["language_shape"] = rfwd["language_shape"]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": two_view_launches[name], "max_abs_err": max(worst[name], macc["err"]),
@@ -2201,12 +2570,14 @@ def main(argv=None) -> None:
             "multi_view": {"launches": multi_launches[name], "ms": macc["ms"], "plain_ms": macc["plain_ms"],
                            "bound_ms": macc["bound_ms"], "bound_by": macc["bound_by"],
                            "library_ms": macc.get("library_ms")},
+            "refer": refer,
         })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr, "multi_forward": mfwd,
-             "multi_eval": mev, "multi_train": mtr}, indent=1))
+             "multi_eval": mev, "multi_train": mtr, "refer_forward": rfwd, "refer_eval": rev, "refer_train": rtr,
+             "refer_cli": rcli}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,13 +7,15 @@ the target size; each pixel goes to the kept query with the highest
 score-weighted probability (first index on ties); queries failing the
 area-ratio check leave their pixels unassigned; stuff classes in
 ``label_ids_to_fuse`` share one segment id; kept queries are packed into
-``max_lift_queries`` slots. Everything, the sequential segment-id assignment
-included, runs on the device with no copy to the host.
+``max_lift_queries`` slots. With word logits (text-referred segmentation)
+only the queries that some word argmaxes to are kept. Everything, the
+sequential segment-id assignment included, runs on the device with no copy
+to the host.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,10 +61,12 @@ def panoptic_segmentation(
     threshold: float = 0.5,
     mask_threshold: float = 0.5,
     overlap_area_threshold: float = 0.8,
+    word_logits: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """class_logits [B, Q, C+1]; mask_logits [B, Q, V, h, w]. Returns the
-    JAX package's dense dict (segment ids and semantic labels [B, V, H, W],
-    per-query flags [B, Q], lift slots [B, S, ...])."""
+    """class_logits [B, Q, C+1]; mask_logits [B, Q, V, h, w]; word_logits
+    optional [B, n_words, Q]. Returns the JAX package's dense dict (segment
+    ids and semantic labels [B, V, H, W], per-query flags [B, Q], lift slots
+    [B, S, ...])."""
     b, q, v, mh, mw = mask_logits.shape
     th, tw = target_size
     dev = mask_logits.device
@@ -71,6 +75,10 @@ def panoptic_segmentation(
     class_probs = torch.softmax(class_logits, dim=-1)
     pred_scores, pred_labels = class_probs.max(dim=-1)
     keep = (pred_labels != num_labels) & (pred_scores > threshold)
+    if word_logits is not None:
+        # keep only the queries that some word argmaxes to
+        preserve = torch.zeros_like(keep).scatter_(1, word_logits.argmax(dim=-1), True)
+        keep = keep & preserve
 
     probs = _resize_sigmoid_resize(mask_logits.reshape(b * q * v, mh, mw), (th, tw))
     w = probs.reshape(b, q, v, th, tw) * pred_scores[:, :, None, None, None]

@@ -6,12 +6,19 @@ at V = 2, the shared-bank ``AsymmetricCroCoMulti`` above) -> ViT-Adapter
 view 0, the shared head 2 for the others) -> Gaussian adapter; video
 Mask2Former -> dense panoptic post-process, whose labels (and, on request,
 per-query class confidences) are lifted onto the Gaussians.
+
+Text-referred segmentation (``mask2former.train_refer_segmentation``): a
+learned token embedding, mean-pooled per referring expression, gives the
+word embeddings that Mask2Former's language layers match against the object
+queries; ``seg_forward`` is the understanding-only path (no DPT or Gaussian
+heads) that the refer steps run. Train or eval mode (the adapter's BatchNorm)
+follows ``module.train()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -76,6 +83,57 @@ class SIU3RModel(nn.Module):
         self.downstream_head2 = DPTHead(3, tok, head_type="regression", patch_size=c.patch_size)
         self.gaussian_param_head1 = DPTHead(raw, tok, head_type="gs_params", patch_size=c.patch_size)
         self.gaussian_param_head2 = DPTHead(raw, tok, head_type="gs_params", patch_size=c.patch_size)
+        m = cfg.mask2former
+        if m.train_refer_segmentation:
+            # the reference ships no text encoder (its ScanRefer data carries
+            # token ids, its Mask2Former takes ready word embeddings): a
+            # learned embedding, mean-pooled, as the JAX package has
+            self.text_embed = nn.Embedding(m.text_vocab_size, m.hidden_dim)
+
+    def _embed_text(self, text_tokens: torch.Tensor) -> torch.Tensor:
+        """text_tokens [B, O, T] int (0 = padding) -> one embedding per
+        referring expression [B, O, hidden]: the mean over its tokens."""
+        if not hasattr(self, "text_embed"):
+            raise ValueError("text tokens need the text embedding: build the model with "
+                             "mask2former.train_refer_segmentation")
+        emb = self.text_embed(text_tokens.long())  # [B, O, T, C]
+        m = (text_tokens > 0)[..., None].to(emb.dtype)
+        return (emb * m).sum(dim=2) / m.sum(dim=2).clamp(min=1.0)
+
+    def _features(self, images: torch.Tensor, intrinsics: torch.Tensor):
+        """Backbone and adapter over every view: (the per-view decoder
+        outputs for the heads, the adapter's 4 levels [B, V, H_l, W_l, C])."""
+        b, v, h, w, _ = images.shape
+        out = self.backbone(images, intrinsics)
+        if self.cfg.num_views == 2:
+            all_feat = [torch.cat([f1, f2], dim=0) for f1, f2 in zip(out.all_feat1, out.all_feat2)]
+            imgs_flat = torch.cat([images[:, 0], images[:, 1]], dim=0)
+            dec_per_view = [out.dec1, out.dec2]
+            feats = self.adapter(imgs_flat, all_feat)
+            return dec_per_view, [torch.stack([f[:b], f[b:]], dim=1) for f in feats]
+        all_feat = [f.reshape(b * v, *f.shape[2:]) for f in out.all_feat]
+        dec_per_view = [[d[:, vi] for d in out.dec_feat] for vi in range(v)]
+        feats = self.adapter(images.reshape(b * v, h, w, 3), all_feat)
+        return dec_per_view, [f.reshape(b, v, *f.shape[1:]) for f in feats]
+
+    def _segment(self, multi_scale_feat, image_size, word_embeddings, text_tokens):
+        """Mask2Former (with its language layers where words are given) and
+        the panoptic post-process: (SegOutput, post)."""
+        if text_tokens is not None and word_embeddings is None:
+            word_embeddings = self._embed_text(text_tokens)
+        seg = self.mask2former(multi_scale_feat, word_embeddings=word_embeddings)
+        m2f = self.cfg.mask2former
+        post = panoptic_segmentation(
+            seg.class_queries_logits,
+            seg.masks_queries_logits,
+            target_size=image_size,
+            label_ids_to_fuse=tuple(m2f.label_ids_to_fuse),
+            num_labels=m2f.num_labels,
+            max_lift_queries=m2f.max_lift_queries,
+            threshold=m2f.seg_threshold,
+            word_logits=seg.word_logits,
+        )
+        return seg, post
 
     def _gaussians_for_views(
         self, dec_per_view: List[List[torch.Tensor]], images: torch.Tensor, image_size: Tuple[int, int]
@@ -100,40 +158,17 @@ class SIU3RModel(nn.Module):
         images: torch.Tensor,
         intrinsics: torch.Tensor,
         enable_query_class_logit_lift: bool = False,
+        word_embeddings: Optional[torch.Tensor] = None,
+        text_tokens: Optional[torch.Tensor] = None,
     ) -> ModelOutput:
         """images [B, V, H, W, 3] in [0, 1]; intrinsics [B, V, 3, 3]
-        normalised (V = 2 for the two-view backbone)."""
+        normalised (V = 2 for the two-view backbone). ``word_embeddings``
+        [B, W, hidden] or ``text_tokens`` [B, W, T] (embedded in the model)
+        restrict the kept queries to those some word refers to."""
         b, v, h, w, _ = images.shape
-        two_view = self.cfg.num_views == 2
-        out = self.backbone(images, intrinsics)
-        if two_view:
-            all_feat = [torch.cat([f1, f2], dim=0) for f1, f2 in zip(out.all_feat1, out.all_feat2)]
-            imgs_flat = torch.cat([images[:, 0], images[:, 1]], dim=0)
-            dec_per_view = [out.dec1, out.dec2]
-        else:
-            all_feat = [f.reshape(b * v, *f.shape[2:]) for f in out.all_feat]
-            imgs_flat = images.reshape(b * v, h, w, 3)
-            dec_per_view = [[d[:, vi] for d in out.dec_feat] for vi in range(v)]
-
-        feats = self.adapter(imgs_flat, all_feat)
-        if two_view:
-            multi_scale_feat = [torch.stack([f[:b], f[b:]], dim=1) for f in feats]
-        else:
-            multi_scale_feat = [f.reshape(b, v, *f.shape[1:]) for f in feats]
-
+        dec_per_view, multi_scale_feat = self._features(images, intrinsics)
         gaussians, pts3d = self._gaussians_for_views(dec_per_view, images, (h, w))
-        seg = self.mask2former(multi_scale_feat)
-
-        m2f = self.cfg.mask2former
-        post = panoptic_segmentation(
-            seg.class_queries_logits,
-            seg.masks_queries_logits,
-            target_size=(h, w),
-            label_ids_to_fuse=tuple(m2f.label_ids_to_fuse),
-            num_labels=m2f.num_labels,
-            max_lift_queries=m2f.max_lift_queries,
-            threshold=m2f.seg_threshold,
-        )
+        seg, post = self._segment(multi_scale_feat, (h, w), word_embeddings, text_tokens)
 
         flat = gaussians.flatten_views()
         semantic = post["semantic"].reshape(b, v * h * w)
@@ -148,6 +183,19 @@ class SIU3RModel(nn.Module):
                 seg_query_valid=post["qc_valid"],
             )
         return ModelOutput(gaussians=flat, seg=seg, post=post, pts3d=pts3d)
+
+    def seg_forward(
+        self,
+        images: torch.Tensor,
+        intrinsics: torch.Tensor,
+        word_embeddings: Optional[torch.Tensor] = None,
+        text_tokens: Optional[torch.Tensor] = None,
+    ) -> Tuple[SegOutput, Dict[str, torch.Tensor]]:
+        """The understanding-only path (reference model.py:391-467): backbone,
+        adapter, Mask2Former and the panoptic post-process, with no DPT or
+        Gaussian head. Inputs as ``forward``. Returns (SegOutput, post)."""
+        _, multi_scale_feat = self._features(images, intrinsics)
+        return self._segment(multi_scale_feat, tuple(images.shape[2:4]), word_embeddings, text_tokens)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

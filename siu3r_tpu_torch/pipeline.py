@@ -12,12 +12,16 @@ backward is the ``raster_bwd`` kernel on CUDA; the attention and deformable
 attention kernels' backward is the plain version's VJP (the JAX package's
 backward there is XLA code, not a TPU kernel); the rest is autograd.
 Gradient accumulation and data parallelism wait for the distributed slice.
+A batch with ``text_token`` (ScanRefer) trains the refer path instead
+(``refer_loss_fn``): the understanding-only forward, one final-layer
+Hungarian match and the word-match cross-entropy.
 
 ``Pipeline.eval_step`` (the reference's step_w_query_class_logit_lift): the
 forward in eval mode with the query-class lift, then novel-view RGB, depth
 and factored query-class rendering over one shared binning; and
 ``lift_rendered_qc`` turns the rendered query-class confidences into
-semantic and instance maps.
+semantic and instance maps. ``Pipeline.refer_eval_step`` gives each
+referring expression's mask: the mask of the query its word argmaxes to.
 """
 
 from __future__ import annotations
@@ -31,7 +35,13 @@ from siu3r_tpu_torch.models.layers import resize_nhwc
 from siu3r_tpu_torch.models.model import ModelOutput, SIU3RModel
 from siu3r_tpu_torch.renderer import RenderOutput, render_color_and_qc, render_gaussians
 from siu3r_tpu_torch.train import lpips as lpips_mod
-from siu3r_tpu_torch.train.losses import depth_smoothness_loss, mse_render_loss, segmentation_loss
+from siu3r_tpu_torch.train.losses import (
+    depth_smoothness_loss,
+    mse_render_loss,
+    refer_word_match_loss,
+    segmentation_loss,
+)
+from siu3r_tpu_torch.train.matcher import hungarian_match_batch
 from siu3r_tpu_torch.train.optimizer import AdamW3
 
 
@@ -128,14 +138,49 @@ class Pipeline:
         losses["total"] = loss
         return loss, losses
 
+    def refer_loss_fn(
+        self,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator],
+        injected_coords: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The referring-expression loss (reference get_loss_dict's refer
+        branch, video_seg_decoder.py:2308-2320) with the model in train mode:
+        ``seg_forward`` with the text tokens (no DPT or Gaussian head: a
+        ScanRefer batch has no target views), one Hungarian match of the
+        final decoder state at ``train_num_points`` points (class cost 1,
+        mask and dice costs at their loss weights), then the word-match
+        cross-entropy. batch: ``context_views_images`` [B, V, H, W, 3],
+        ``context_views_intrinsics`` [B, V, 3, 3], ``gt_masks``
+        [B, O, V, H, W], ``gt_classes`` [B, O], ``gt_valid`` [B, O] and
+        ``text_token`` [B, O, T] (word i refers to object i).
+        ``injected_coords`` [B, P, 2] replaces the matcher's points drawn
+        from ``generator``. Returns (total, {"word_match", "total"})."""
+        m2f = self.cfg.pipeline.model.mask2former
+        self.model.train()
+        seg, _ = self.model.seg_forward(batch["context_views_images"], batch["context_views_intrinsics"],
+                                        text_tokens=batch["text_token"])
+        if injected_coords is None and generator is None:
+            raise ValueError("the random path draws from an explicit torch.Generator")
+        assignment = hungarian_match_batch(
+            seg.class_queries_logits, seg.masks_queries_logits, batch["gt_masks"], batch["gt_classes"],
+            batch["gt_valid"], generator, num_points=m2f.train_num_points, cost_class=1.0,
+            cost_mask=m2f.mask_weight, cost_dice=m2f.dice_weight, coords=injected_coords)
+        losses = {"word_match": refer_word_match_loss(seg.word_logits, assignment, batch["gt_valid"])}
+        losses["total"] = self.cfg.pipeline.weight_seg_loss * losses["word_match"]
+        return losses["total"], losses
+
     def train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """One optimizer step on ``batch`` (see ``loss_fn``). Returns every
-        loss term, detached, on the device."""
+        """One optimizer step on ``batch``: ``refer_loss_fn`` where it holds
+        ``text_token``, else ``loss_fn``. Returns every loss term, detached,
+        on the device. Parameters the loss does not reach (a refer step's
+        heads) take a zero gradient: AdamW still decays them."""
         if self.optimizer is None:
             raise RuntimeError("call init_train first")
         for p in self.model.parameters():
             p.grad = None
-        loss, losses = self.loss_fn(batch, generator)
+        loss_fn = self.refer_loss_fn if "text_token" in batch else self.loss_fn
+        loss, losses = loss_fn(batch, generator)
         loss.backward()
         self.optimizer.step()
         for p in self.model.parameters():
@@ -167,6 +212,26 @@ class Pipeline:
             (h, w),
         )
         return out, render, qc
+
+    @torch.inference_mode()
+    def refer_eval_step(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The referring-expression eval forward: ``seg_forward`` in eval mode
+        with ``text_token`` [B, W, T]; for each word, the mask logits of the
+        query it argmaxes to, resized bilinearly to the input size
+        (half-pixel centres) and thresholded at 0 (sigmoid at 0.5). Returns
+        (masks [B, W, V, H, W] bool, word_logits [B, W, Q]). Switches the
+        model to eval mode."""
+        self.model.eval()
+        images = batch["context_views_images"]
+        h, w = images.shape[2:4]
+        seg, _ = self.model.seg_forward(images, batch["context_views_intrinsics"], text_tokens=batch["text_token"])
+        ml = seg.masks_queries_logits  # [B, Q, V, h, w]
+        b, _, v, mh, mw = ml.shape
+        pred_q = seg.word_logits.argmax(dim=-1)  # [B, W]
+        nw = pred_q.shape[1]
+        masks = ml.gather(1, pred_q[:, :, None, None, None].expand(-1, -1, v, mh, mw))
+        up = resize_nhwc(masks.reshape(b * nw * v, mh, mw, 1), (h, w), align_corners=False)
+        return up.reshape(b, nw, v, h, w) > 0.0, seg.word_logits
 
 
 def lift_rendered_qc(

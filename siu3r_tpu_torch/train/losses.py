@@ -5,7 +5,7 @@ Hungarian-matched cross-entropy over the classes (no-object weight 0.1) and
 point-sampled sigmoid-BCE and dice mask losses with uncertainty-based
 sampling (12544 points, oversample 3, importance 0.75), for the final and
 every auxiliary decoder state. Then the pipeline's instance-masked depth
-smoothness and render MSE.
+smoothness and render MSE, and the refer path's word-match cross-entropy.
 
 The point losses and the matcher sample the masks with the gather form
 (``grid_sample_bilinear``): the JAX package's separable one-hot products
@@ -235,3 +235,20 @@ def depth_smoothness_loss(depth: torch.Tensor, seg_mask: torch.Tensor, instance_
 def mse_render_loss(render: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Plain MSE over all elements."""
     return ((render - target) ** 2).mean()
+
+
+def refer_word_match_loss(word_logits: torch.Tensor, assignment: torch.Tensor, gt_valid: torch.Tensor) -> torch.Tensor:
+    """The referring-expression loss (reference refer_seg_forward,
+    video_seg_decoder.py:573-594): cross-entropy between the word/query
+    similarity logits [B, W, Q] and the query matched to each word's object
+    (word i <-> object i; assignment [B, O], gt_valid [B, O]). The mean over
+    an item's valid words, summed over the items, as the reference's
+    per-item ``F.cross_entropy`` accumulated with ``+=``. A word whose object
+    is invalid or unassigned (-1) is left out."""
+    nw = word_logits.shape[1]
+    a = assignment[:, :nw]
+    valid = (a >= 0) & gt_valid[:, :nw]
+    logp = torch.log_softmax(word_logits, dim=-1)
+    ce = -logp.gather(-1, a.clamp(min=0).long()[..., None])[..., 0]
+    per_item = torch.where(valid, ce, torch.zeros_like(ce)).sum(dim=1) / valid.sum(dim=1).clamp(min=1)
+    return per_item.sum()

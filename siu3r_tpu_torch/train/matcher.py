@@ -5,7 +5,9 @@ Point-sampled class, mask-BCE and dice costs over a fixed pad of objects
 (invalid ones masked), solved on the device by the auction LAP
 (``ops/lap.py``). ``match_costs`` builds the cost matrices of any number of
 (decoder layer, batch item) problems so that one ``auction_lap`` call solves
-them all; ``hungarian_match`` is the single-item form of the JAX package.
+them all; ``hungarian_match_batch`` matches the final state of a batch (the
+refer loss), and ``hungarian_match`` is its single-item form, the JAX
+package's.
 Matching is not differentiated.
 """
 
@@ -71,6 +73,32 @@ def match_costs(
         return cost.transpose(1, 2)
 
 
+def hungarian_match_batch(
+    class_logits: torch.Tensor,
+    mask_logits: torch.Tensor,
+    gt_masks: torch.Tensor,
+    gt_classes: torch.Tensor,
+    gt_valid: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    num_points: int = 12544,
+    cost_class: float = 1.0,
+    cost_mask: float = 5.0,
+    cost_dice: float = 5.0,
+    coords: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Matching of N items by one auction call. class_logits [N, Q, C+1];
+    mask_logits [N, Q, V, h, w]; gt_masks [N, O, V, H, W]; gt_classes [N, O];
+    gt_valid [N, O]. Returns the query of each ground-truth object [N, O]
+    int64 (-1 where invalid or unassigned). ``coords`` [N, P, 2] overrides
+    the random sample points drawn from ``generator``, each item's its own."""
+    n, o = gt_valid.shape
+    if coords is None:
+        coords = torch.rand(n, num_points, 2, generator=generator, device=gt_masks.device)
+    tgt_pts = torch.stack([sample_mask_points(gt_masks[i], coords[i]).reshape(o, -1) for i in range(n)])
+    cost = match_costs(class_logits, mask_logits, gt_classes, coords, tgt_pts, cost_class, cost_mask, cost_dice)
+    return auction_lap(cost, row_valid=gt_valid)
+
+
 def hungarian_match(
     class_logits: torch.Tensor,
     mask_logits: torch.Tensor,
@@ -84,13 +112,9 @@ def hungarian_match(
     cost_dice: float = 5.0,
     coords: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Single-item matching. class_logits [Q, C+1]; mask_logits [Q, V, h, w];
-    gt_masks [O, V, H, W]; gt_classes [O]; gt_valid [O]. Returns the query of
-    each ground-truth object [O] int64 (-1 where invalid). ``coords`` [P, 2]
-    overrides the random sample points drawn from ``generator``."""
-    if coords is None:
-        coords = torch.rand(num_points, 2, generator=generator, device=gt_masks.device)
-    tgt_pts = sample_mask_points(gt_masks, coords).reshape(gt_masks.shape[0], -1)
-    cost = match_costs(class_logits[None], mask_logits[None], gt_classes[None], coords[None], tgt_pts[None],
-                       cost_class, cost_mask, cost_dice)
-    return auction_lap(cost, row_valid=gt_valid[None])[0]
+    """Single-item matching: ``hungarian_match_batch`` of one item.
+    class_logits [Q, C+1]; mask_logits [Q, V, h, w]; gt_masks [O, V, H, W];
+    gt_classes [O]; gt_valid [O]; coords [P, 2]. Returns [O]."""
+    return hungarian_match_batch(
+        class_logits[None], mask_logits[None], gt_masks[None], gt_classes[None], gt_valid[None], generator,
+        num_points, cost_class, cost_mask, cost_dice, None if coords is None else coords[None])[0]

@@ -14,8 +14,15 @@ names, the names the port's modules carry. It is the exact inverse of
 * separate q/k/v Dense -> packed ``in_proj_weight``/``in_proj_bias``.
 
 The BatchNorm statistics (flax ``batch_stats``) become the BatchNorm
-buffers. ``lpips_params_from_jax`` carries the LPIPS network's parameters.
-A reference Lightning ``.ckpt`` loads into the port through
+buffers. A refer model's language layers (``mask2former.lang_*``, in the JAX
+tree only where that model was built with word embeddings) map as the
+decoder's layers do; its ``text_embed.embedding`` becomes
+``text_embed.weight``. The converter has no ``text_embed``: the reference
+ships no text encoder, so no reference checkpoint holds one, and the JAX
+package learns it from scratch (``siu3r_tpu/models/model.py:82-87``); carry
+it across by hand (``params["text_embed"] = {"embedding": weight}``).
+``lpips_params_from_jax`` carries the LPIPS network's parameters. A
+reference Lightning ``.ckpt`` loads into the port through
 ``load_checkpoint``, which strips the pipeline's ``model.`` prefix.
 """
 
@@ -189,6 +196,12 @@ def _mask2former(out: State, t, cfg: ModelCfg) -> None:
         _linear(out, lt["fc1"], f"{p}.fc1")
         _linear(out, lt["fc2"], f"{p}.fc2")
     _linear(out, t["class_predictor"], "mask2former.class_predictor")
+    for i in range(6 if "lang_cross_attns_0" in t else 0):
+        _mha(out, t[f"lang_cross_attns_{i}"], f"mask2former.lang_cross_attns.{i}")
+        for name in ("lang_attn_norms", "lang_attn_norms_final"):
+            _norm(out, t[f"{name}_{i}"], f"mask2former.{name}.{i}")
+        for name in ("lang_fc1s", "lang_fc2s"):
+            _linear(out, t[f"{name}_{i}"], f"mask2former.{name}.{i}")
 
 
 def _dpt_head(out: State, t, p: str, head_type: str) -> None:
@@ -227,6 +240,8 @@ def state_dict_from_jax(variables: Dict[str, Any], cfg: ModelCfg) -> State:
         _dpt_head(out, params[head], head, "regression")
     for head in ("gaussian_param_head1", "gaussian_param_head2"):
         _dpt_head(out, params[head], head, "gs_params")
+    if "text_embed" in params:
+        out["text_embed.weight"] = _t(params["text_embed"]["embedding"])
     return out
 
 

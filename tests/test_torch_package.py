@@ -1,6 +1,7 @@
 """siu3r_tpu_torch stands alone: it imports neither JAX nor the JAX package,
 and its entry points run on the GPU unless the caller asks for the CPU."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -15,7 +16,7 @@ from siu3r_tpu_torch.kernels.binning import bin_gaussians
 from siu3r_tpu_torch.kernels.msda import msda
 from siu3r_tpu_torch.kernels.raster import raster, raster_backward
 from siu3r_tpu_torch.render.projection import ProjectedGaussians
-from siu3r_tpu_torch.cli import inference
+from siu3r_tpu_torch.cli import inference, validate_refer
 from siu3r_tpu_torch.models.model import SIU3RModel, build_model
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -29,7 +30,8 @@ def test_package_imports_no_jax():
     modules = [m.removesuffix(".__init__") for m in modules]
     for m in ("render.projection", "render.rasterizer", "renderer", "pipeline", "cli.viewer",
               "kernels.binning", "kernels.raster", "ops.sh", "ops.lap", "train.losses", "train.matcher",
-              "train.lpips", "train.optimizer", "checkpoint_io"):
+              "train.lpips", "train.optimizer", "checkpoint_io", "data", "data.datasets", "data.loader",
+              "data.native_io", "data.seg_labels", "eval.metrics", "cli.train", "cli.validate_refer"):
         assert "siu3r_tpu_torch." + m in modules
     code = (
         "import importlib, sys\n"
@@ -46,6 +48,21 @@ def test_package_imports_no_jax():
     assert len(modules) > 25
 
 
+def test_no_module_imports_the_jax_package_anywhere():
+    """A static scan: no ``import siu3r_tpu`` or ``from siu3r_tpu`` (the JAX
+    package, not ``siu3r_tpu_torch``) in any file of the port or in
+    chip_smoke.py, function bodies included, where the import test above
+    cannot see them."""
+    pattern = re.compile(r"^\s*(import|from)\s+(siu3r_tpu|jax|jaxlib|flax)(\.|\s|$)", re.MULTILINE)
+    files = sorted((ROOT / "siu3r_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    found = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}" for p in files for m in pattern.finditer(p.read_text())]
+    assert not found, found
+    assert len(files) > 40
+    # the scan sees function-local imports (the JAX package's data modules have them)
+    jax_data = (ROOT / "siu3r_tpu" / "data" / "datasets.py").read_text()
+    assert pattern.search(jax_data)
+
+
 def test_default_device_raises_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -57,6 +74,8 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         inference.main(["--image_path1", "a.png", "--image_path2", "b.png"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        validate_refer.main(["--config", "configs/scanrefer.yaml", "datamodule.dataset_cfg.root=/nonexistent"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
