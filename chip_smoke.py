@@ -87,10 +87,44 @@ Phases, in order; any failure raises and the script exits non-zero:
      unchanged, 6 steps timed with their host syncs and peak memory;
  18. refer_cli: ``python -m siu3r_tpu_torch.cli.validate_refer`` (its own
      process) on a synthetic ScanRefer root at 256x256 with this process's
-     weights, its JSON held against this process's refer eval step.
+     weights, its JSON held against this process's refer eval step;
+ 19. val_slice: the small config's validation sweep (eval step,
+     ``segments_info``, the lift, the Visualizer, the Evaluator) on the GPU
+     against the same weights on the CPU: PSNR, SSIM, LPIPS and depth errors
+     within stated tolerances, label maps at least 99.9% equal, mIoU, PQ and
+     mAP equal to the CPU evaluator's on the GPU's label maps, and to the
+     CPU sweep's where the label maps are equal;
+ 20. validate: ``python -m siu3r_tpu_torch.cli.validate --config
+     configs/scannet.yaml --ckpt W --limit 4`` (its own process) at full
+     width on a synthetic ScanNet root at 256x256 (a wall, a floor and four
+     objects), W this process's weights: every key of results.json finite and
+     held against this process's eval steps on the same items through the
+     Visualizer and the Evaluator (each scene's render covered), which are
+     also repeated to show whether they are bitwise repeatable; the files of
+     the two sweeps compared by kind; one eval step's launches as phase 6's,
+     no host sync; the CLI's per-batch step and host seconds, and this
+     process's sweep timed by stage;
+ 21. evaluate: ``python -m siu3r_tpu_torch.cli.evaluate`` (its own process)
+     on phase 20's directory gives its results.json value for value;
+ 22. train_cli: ``python -m siu3r_tpu_torch.cli.train --config
+     configs/scannet.yaml`` (its own process) at full width and B = 3 with
+     gradient accumulation k = 2 for 4 steps from a training state of biased
+     weights W (finite records, train_viz PNGs, one checkpoint whose heads
+     moved from W by more than their decay), then ``--resume`` of it for one
+     more epoch; in this process from W at B = 3, k = 2: no parameter moves
+     after micro-step 1, every trained part (not the frozen encoder) by more
+     than its decay after micro-step 2, then micro-steps timed, each
+     covered and swept, with their host syncs and peak memory, the binning,
+     raster and raster_bwd kernels held against their plain versions on a
+     timed micro-step's inputs, and the training state's size, save and
+     restore seconds.
+Every phase logs the SM clock (``nvidia-smi`` clocks.sm, clocks.max.sm) at
+its start and end.
 It then prints the kernels' JSON line (each kernel with the two-view path's
 launches and times and, under "multi_view" and "refer", the 8-view path's
-and the refer forward's) and, last, the device line.
+and the refer forward's; under "validate" the launches of one sweep batch,
+under "train_cli" those of one micro-step and the render kernels' times on
+its inputs) and, last, the device line.
 ``--phases`` runs the named phases only (after 1 and 2) and prints neither.
 Imports nothing of JAX or of the JAX package.
 """
@@ -101,6 +135,7 @@ import argparse
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -220,6 +255,12 @@ def phase_environment() -> str:
     print(smi, flush=True)
     log("env", f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
                f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} tf32 off")
+    import importlib.util
+
+    import PIL
+
+    log("env", f"Pillow {PIL.__version__}; cv2 {'importable' if importlib.util.find_spec('cv2') else 'not installed'} "
+               "(the port needs none)")
     return smi
 
 
@@ -1299,6 +1340,20 @@ def _device_breakdown(run, iters: int) -> tuple[float, list]:
     if total <= 0:
         raise RuntimeError("the profiler recorded no device time")
     return total, rows[:20]
+
+
+def _ops_by_device_time(run) -> list:
+    """The PyTorch operators of one ``run`` whose own kernels took the most
+    device time: (name, input shapes, ms), largest first (profiler trace of
+    host and device, shapes recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [(e.key, str(e.input_shapes), e.self_device_time_total / 1e3)
+            for e in prof.key_averages(group_by_input_shape=True) if e.key.startswith("aten::")]
+    return sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])[:20]
 
 
 def _view_inputs(views: int, seed: int = 0, batch: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2470,6 +2525,695 @@ def phase_refer_cli() -> dict:
     return got
 
 
+# ---------------------------------------------------------------- phases 19-22: the validation sweep and training CLI
+
+VAL_SCENES = 4  # the validate CLI's --limit, at batch 1
+TRAIN_SCENES, SCENE_FRAMES = 6, 16  # B = 3: two steps an epoch
+SCENE_SIZE = 256
+TRAIN_CLI_STEPS, TRAIN_CLI_RESUMED = 4, 2
+CLI_ATOL = 1e-6
+# each limit ten times the largest difference measured on an H100, rounded
+# up to 1, 2 or 5 of its decade (PERF.md §6 lists the readings). The small
+# sweep on the card against the CPU:
+SWEEP_LIMITS = dict(psnr=5e-5, ssim=2e-5, lpips=2e-7, absrel=5e-8, rmse=5e-8)
+# the validate CLI against this process's eval steps: a repeat in one process
+# writes the same files bit for bit, two processes differ by one level in a
+# few rgb pixels and by a few millimetres in depth pixels
+PROCESS_LIMITS = dict(psnr=5e-5, ssim=2e-7, lpips=5e-9, absrel=5e-8, rmse=5e-8)
+# the synthetic ScanNet scene: (panoptic class, instance) of each object
+SCANNET_OBJECTS = ((1, 0), (2, 0), (4, 1), (5, 2), (6, 3), (7, 4))  # wall, floor, bed, chair, sofa, table
+
+
+def sm_clock() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _scannet_root(root: Path, seed: int) -> None:
+    """A ScanNet root at 256x256 in the layout the dataset reads
+    (tests/test_cli_smoke.py's): ``train`` with TRAIN_SCENES scenes and
+    ``val`` with one, each of SCENE_FRAMES frames with colour, 16-bit depth,
+    extrinsics and panoptic PNGs (a wall, a floor and four objects of four
+    thing classes, moving from frame to frame), ``iou.npy``, and
+    ``val_pair.json`` with VAL_SCENES pairs of 2 context and 6 target views."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    s = SCENE_SIZE
+    for split, n_scenes in (("train", TRAIN_SCENES), ("val", 1)):
+        for si in range(n_scenes):
+            scan = root / split / f"scene{si:04d}_00"
+            for sub in ("color", "depth", "extrinsic", "panoptic"):
+                (scan / sub).mkdir(parents=True)
+            np.savetxt(scan / "intrinsic.txt", np.array([[1.24 * s, 0, s / 2], [0, 1.24 * s, s / 2], [0, 0, 1]]))
+            np.save(scan / "iou.npy", np.full((100, 100), 0.5))
+            for i in range(SCENE_FRAMES):
+                Image.fromarray((rng.rand(s, s, 3) * 255).astype(np.uint8)).save(scan / "color" / f"{i}.jpg")
+                Image.fromarray((rng.rand(s, s) * 4000 + 500).astype(np.uint16)).save(scan / "depth" / f"{i}.png")
+                ext = np.eye(4)
+                ext[0, 3] = 0.01 * i  # a train pair is 10 to 15 frames apart: both see what _scored puts in front
+                np.savetxt(scan / "extrinsic" / f"{i}.txt", ext)
+                seg = np.zeros((s, s), np.int64)
+                shift = 3 * i
+                boxes = ((0, 160, 0, 256), (160, 256, 0, 256), (100, 200, 10 + shift, 90 + shift),
+                         (40, 120, 120, 180), (170, 240, 150 + shift // 2, 230 + shift // 2), (20, 70, 20, 100))
+                for (cls, inst), box in zip(SCANNET_OBJECTS, boxes):
+                    y0, y1, x0, x1 = (c * s // 256 for c in box)
+                    seg[y0:y1, x0:x1] = cls * 1000 + inst
+                Image.fromarray(np.stack([seg % 256, (seg // 256) % 256, seg // 65536], -1).astype(np.uint8)).save(
+                    scan / "panoptic" / f"{i}.png")
+    pairs = [{"scan": "scene0000_00", "context_ids": [c, c + 5], "target_ids": [c, c + 1, c + 2, c + 3, c + 4, c + 5]}
+             for c in range(VAL_SCENES)]
+    (root / "val_pair.json").write_text(json.dumps(pairs))
+
+
+def _scored(model, label: int, depth: float = 0.0, scale: float = 0.0) -> None:
+    """Bias seeded random weights so that a sweep has something to score:
+    the class logit of ``label`` raised (queries are kept and lifted), the
+    splats opaque, and, where the sweep sees the scene from the data's
+    cameras, the points ``depth`` further out along z (past the near plane:
+    a random init puts them 0.01 from the camera) and their scales raised."""
+    with torch.no_grad():
+        model.mask2former.class_predictor.bias[label] += 4.0
+        for head in (model.downstream_head1, model.downstream_head2):
+            head.dpt.head[4].bias[2] += depth
+        for head in (model.gaussian_param_head1, model.gaussian_param_head2):
+            head.dpt.head[4].bias[0] += 2.0
+            head.dpt.head[4].bias[1:4] += scale
+
+
+def _sweep_cfg(root: Path):
+    """configs/scannet.yaml with the ScanNet classes, at ``root``, as the
+    validate CLI sets it (2 context + 4 extra target views)."""
+    from siu3r_tpu_torch.config import bind_scannet_classes, load_config
+
+    cfg = bind_scannet_classes(load_config(Path(__file__).resolve().parent / "configs" / "scannet.yaml",
+                                           [f"datamodule.dataset_cfg.root={root}"]))
+    cfg.mode = "val"
+    cfg.datamodule.dataset_cfg.num_extra_target_views = 4
+    return cfg
+
+
+def _results_excess(got: dict, want: dict, keys) -> dict:
+    """|got - want| of each of ``keys`` (an mAP's worst entry)."""
+    out = {}
+    for k in keys:
+        if isinstance(want[k], dict):
+            out[k] = max(abs(got[k][x] - want[k][x]) for x in want[k])
+        elif isinstance(want[k], bool):
+            out[k] = 0.0 if got[k] == want[k] else math.inf
+        else:
+            out[k] = abs(got[k] - want[k])
+    return out
+
+
+def _label_agreement(a: Path, b: Path) -> float:
+    """The share of pixels whose packed label equals across the two sweeps'
+    ``*_seg_pred`` PNGs."""
+    from PIL import Image
+
+    shares = [float((np.asarray(Image.open(p)) == np.asarray(Image.open(b / p.relative_to(a)))).all(-1).mean())
+              for p in sorted(a.rglob("*_seg_pred/*.png"))]
+    if not shares:
+        raise AssertionError(f"no label maps under {a}")
+    return min(shares)
+
+
+RESULT_KEYS = ("psnr", "ssim", "lpips", "lpips_pretrained", "absrel", "rmse", "context_miou", "context_pq",
+               "context_map", "target_miou", "target_pq", "target_map")
+
+
+def _png_diff(a: Path, b: Path) -> dict:
+    """Per kind of file the Visualizer writes (a PNG's directory or name,
+    and pred.json), across two sweeps' directories: [files, files that
+    differ, largest pixel difference]."""
+    from PIL import Image
+
+    out: dict = {}
+    for p in sorted([*a.rglob("*.png"), *a.rglob("pred.json")]):
+        q = b / p.relative_to(a)
+        kind = p.name if p.suffix == ".json" else p.parent.name if p.parent.parent != a else p.stem
+        entry = out.setdefault(kind, [0, 0, 0])
+        entry[0] += 1
+        if p.suffix == ".json":
+            entry[1] += int(json.loads(p.read_text()) != json.loads(q.read_text()))
+            continue
+        x, y = np.asarray(Image.open(p)).astype(np.int64), np.asarray(Image.open(q)).astype(np.int64)
+        if x.shape != y.shape or not np.array_equal(x, y):
+            entry[1] += 1
+            entry[2] = max(entry[2], int(np.abs(x - y).max()) if x.shape == y.shape else 1 << 30)
+    return out
+
+
+def _swapped_results(evaluator, got_dir: Path, want_dir: Path, tmp: Path) -> dict:
+    """``evaluator`` (the ``want`` side's) on a copy of ``want_dir`` holding
+    ``got_dir``'s predicted label maps and segments (``*_seg_pred/``): its
+    mIoU, PQ and mAP are the ``got`` side's wherever the two sides' metric
+    code agrees, whatever share of the label maps differs."""
+    swapped = tmp / f"{want_dir.name}_with_{got_dir.name}_labels"
+    shutil.copytree(want_dir, swapped)
+    for p in got_dir.rglob("*_seg_pred/*"):
+        shutil.copyfile(p, swapped / p.relative_to(got_dir))
+    out = evaluator.evaluate(str(swapped))
+    shutil.rmtree(swapped)
+    return out
+
+
+def _compare_sweeps(phase: str, got: dict, want: dict, agree: float, image_limits: dict, swapped: dict) -> dict:
+    """Two sweeps' results.json: the same keys; label maps at least
+    LABEL_AGREEMENT equal; the image and depth metrics within
+    ``image_limits``; mIoU, PQ and mAP within CLI_ATOL of ``swapped`` (the
+    ``want`` side's evaluator on its own directory with ``got``'s label
+    maps, ``_swapped_results``), and of ``want`` where the label maps are
+    all equal. Returns each value's excess over ``want``, and over
+    ``swapped`` under "swapped_<key>"."""
+    keys = [k for k in RESULT_KEYS if k in want and k != "lpips_pretrained"]
+    seg_keys = [k for k in keys if k not in SWEEP_LIMITS]
+    excess = _results_excess(got, want, keys)
+    excess.update({f"swapped_{k}": v for k, v in _results_excess(got, swapped, seg_keys).items()})
+    limits = dict(image_limits)
+    limits.update({k: CLI_ATOL if agree == 1.0 else math.inf for k in seg_keys})
+    limits.update({f"swapped_{k}": CLI_ATOL for k in seg_keys})
+    if (got.keys() != want.keys() or got.get("lpips_pretrained") != want.get("lpips_pretrained")
+            or agree < LABEL_AGREEMENT or any(excess[k] > limits[k] for k in excess)):
+        raise AssertionError(f"{phase}: {got} vs {want} (with its labels: {swapped}): label maps agree {agree}, "
+                             f"excess {excess} over {limits}")
+    return excess
+
+
+def phase_val_slice() -> dict:
+    """The small config's validation sweep on the GPU (kernels) against the
+    same weights on the CPU (plain versions), on one synthetic batch: eval
+    step, ``segments_info``, the lift, the Visualizer and the Evaluator, each
+    side into its own directory. PSNR, SSIM, LPIPS and the depth errors
+    within SWEEP_LIMITS, label maps at least LABEL_AGREEMENT equal, and
+    mIoU, PQ and mAP as ``_compare_sweeps`` holds them."""
+    from siu3r_tpu_torch.config import EvaluatorCfg, PipelineCfg, RootCfg
+    from siu3r_tpu_torch.eval.evaluator import Evaluator
+    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline
+    from siu3r_tpu_torch.visualizer import Visualizer
+
+    mcfg = _small_cfg(2)
+    root = RootCfg(pipeline=PipelineCfg(model=mcfg))
+    gpu = Pipeline(root, device="cuda", seed=7)
+    _scored(gpu.model, 2)  # the targets frame the Gaussians: no depth or scale change
+    cpu = Pipeline(root, device="cpu", seed=0)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    rng = np.random.RandomState(0)
+    n_t, hw = 6, 64
+    images = torch.from_numpy(rng.rand(1, 2, hw, hw, 3).astype(np.float32))
+    intr = torch.tensor([[1.24, 0, 0.5], [0, 1.24, 0.5], [0, 0, 1]]).expand(1, 2, 3, 3).contiguous()
+    with torch.inference_mode():
+        means = cpu.model(images, intr).gaussians.means
+    ext, tintr = _target_views(means, n_t, 2)
+    o = 4
+    gt = np.zeros((1, o, n_t, hw, hw), np.float32)
+    for k, (y0, y1, x0, x1) in enumerate(((0, 40, 0, 64), (40, 64, 0, 64), (10, 40, 8, 30), (20, 50, 34, 60))):
+        gt[0, k, :, y0:y1, x0:x1] = 1.0
+        gt[0, :k, :, y0:y1, x0:x1] = 0.0
+    batch = {
+        "context_views_images": images.numpy(), "context_views_intrinsics": intr.numpy(),
+        "target_views_extrinsics": ext.numpy(), "target_views_intrinsics": tintr.numpy(),
+        "context_views_id": np.array([[10, 15]], np.int32), "target_views_id": np.array([[10, 11, 12, 13, 14, 15]],
+                                                                                        np.int32),
+        "scene_names": ["scene0000_00"], "target_views_images": rng.rand(1, n_t, hw, hw, 3).astype(np.float32),
+        "target_views_depths": rng.rand(1, n_t, hw, hw).astype(np.float32) + 0.5,
+        "target_gt_masks": gt, "target_gt_classes": np.array([[0, 1, 2, 3]]), "target_gt_valid": np.ones((1, o), bool),
+        "gt_masks": gt[:, :, [0, 5]], "gt_classes": np.array([[0, 1, 2, 3]]), "gt_valid": np.ones((1, o), bool),
+    }
+    ecfg = EvaluatorCfg(id2label=dict(mcfg.mask2former.id2label), stuffs=[0, 1], things=[2, 3, 4])
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, pipe in (("cuda", gpu), ("cpu", cpu)):
+            dev = pipe.device
+            out, render, qc = pipe.eval_step({k: torch.from_numpy(batch[k]).to(dev) for k in EVAL_KEYS})
+            viz = Visualizer(root.pipeline.visualizer)
+            viz.add_eval_step(str(tmp / name), batch, out, render, qc=qc, m2f=mcfg.mask2former)
+            viz.write_files()
+            results[name] = Evaluator(ecfg, device=dev).evaluate(str(tmp / name))
+            if name == "cuda":
+                coverage = render.alpha.mean().item()
+        agree = _label_agreement(tmp / "cuda", tmp / "cpu")
+        files = _png_diff(tmp / "cuda", tmp / "cpu")
+        swapped = _swapped_results(Evaluator(ecfg, device="cpu"), tmp / "cuda", tmp / "cpu", tmp)
+    got, want = results["cuda"], results["cpu"]
+    if coverage < MIN_COVERAGE:
+        raise AssertionError(f"val_slice: the target views see almost nothing (mean alpha {coverage})")
+    excess = _compare_sweeps("val_slice", got, want, agree, SWEEP_LIMITS, swapped)
+    log("val_slice", f"small config sweep (eval step, segments_info, lift, Visualizer, Evaluator) on cuda (kernels) vs "
+                     f"cpu (plain), 6 target views, mean alpha {coverage:.3f}: label maps agree {agree:.5f}; "
+                     f"image metrics within {SWEEP_LIMITS}, mIoU, PQ, mAP within {CLI_ATOL} of the cpu evaluator's "
+                     f"on the cuda label maps (and of the cpu sweep's where the label maps are equal); excess "
+                     f"{({k: float(f'{v:.3g}') for k, v in excess.items()})}; files [n, differing, largest pixel "
+                     f"difference] {files}; cuda target miou {got.get('target_miou')}, pq {got.get('target_pq')}, "
+                     f"map {got.get('target_map', {}).get('map')}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return dict(label_agreement=agree, excess=excess, files=files, cuda=got, cpu=want, mean_alpha=coverage)
+
+
+_SWEEP: dict = {}  # the validate phase's synthetic root and output, for the evaluate phase
+
+
+def _sweep_root() -> Path:
+    if "tmp" not in _SWEEP:
+        _SWEEP["tmp"] = tempfile.TemporaryDirectory()
+        root = Path(_SWEEP["tmp"].name) / "scannet"
+        _scannet_root(root, seed=11)
+        _SWEEP["root"] = root
+    return _SWEEP["root"]
+
+
+def _timed_stage(timer, name: str, module, attr: str):
+    """Wrap ``module.attr`` so that its time adds to ``timer`` under ``name``."""
+    orig = getattr(module, attr)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            timer[name] = timer.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(module, attr, wrapped)
+    return lambda: setattr(module, attr, orig)
+
+
+def phase_validate() -> dict:
+    """``python -m siu3r_tpu_torch.cli.validate --config configs/scannet.yaml
+    --ckpt W --limit 4`` (its own process) at full width on a synthetic
+    ScanNet root, W this process's weights (another seed than the CLI's own
+    init); its results.json holds every key the JAX evaluator writes, finite,
+    each held against this process's eval steps on the same items written
+    through the Visualizer into a second directory and evaluated there
+    (label maps at least LABEL_AGREEMENT equal, the image metrics within
+    PROCESS_LIMITS, mIoU, PQ and mAP as ``_compare_sweeps`` holds them);
+    each of those scenes' renders covered (MIN_COVERAGE); the same eval
+    steps repeated in this process write the same files bit for bit. W is
+    biased by ``_scored`` so that the sweep keeps a query and sees the
+    Gaussians. One eval step's launches are phase eval's, with no host sync
+    inside it. The
+    in-process sweep is timed by stage (eval step; segments_info, lift and
+    overlays; PNG writes; the evaluator's PSNR, SSIM, LPIPS and mAP)."""
+    from siu3r_tpu_torch.cli.train import build_dataset
+    from siu3r_tpu_torch.eval import evaluator as E
+    from siu3r_tpu_torch.eval import metrics as M
+    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline
+    from siu3r_tpu_torch.utils import visualize as V
+    from siu3r_tpu_torch.visualizer import Visualizer
+
+    here = Path(__file__).resolve().parent
+    root = _sweep_root()
+    tmp = Path(_SWEEP["tmp"].name)
+    cfg = _sweep_cfg(root)
+    m2f = cfg.pipeline.model.mask2former
+    pipe = Pipeline(cfg, device="cuda", seed=3)  # not the CLI's own seed: the weights must come from --ckpt
+    _scored(pipe.model, 4, depth=0.5, scale=30.0)  # chairs; the views are the data's cameras
+    weights = tmp / "weights.pt"
+    torch.save(pipe.model.state_dict(), weights)
+    out_dir = tmp / "val_cli"
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "siu3r_tpu_torch.cli.validate", "--config",
+                          str(here / "configs" / "scannet.yaml"), "--ckpt", str(weights), "--limit", str(VAL_SCENES),
+                          "--output_path", str(out_dir), f"datamodule.dataset_cfg.root={root}"],
+                         cwd=here, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    weights.unlink()
+    if cli.returncode != 0:
+        raise RuntimeError(f"validate exited {cli.returncode}:\n{cli.stdout[-3000:]}\n{cli.stderr[-4000:]}")
+    got = json.loads((out_dir / "results.json").read_text())
+    sweep = json.loads((out_dir / "sweep.json").read_text())
+    missing = [k for k in RESULT_KEYS if k not in got]
+    finite = all(math.isfinite(v) for k, x in got.items() if not isinstance(x, bool)
+                 for v in (x.values() if isinstance(x, dict) else x if isinstance(x, list) else [x]))
+    if missing or not finite or sweep["n_scenes"] != VAL_SCENES:
+        raise AssertionError(f"validate: results.json lacks {missing} or is not finite: {got}; sweep {sweep}")
+
+    # this process: the same items, the same weights, its own directory
+    dataset = build_dataset(cfg, train=False)
+    items = [dataset[i] for i in range(VAL_SCENES)]
+    as_batch = lambda item: {k: (np.asarray(v)[None] if not isinstance(v, str) else [v]) for k, v in item.items()}
+    inputs = lambda b: {k: torch.from_numpy(b[k]).cuda() for k in EVAL_KEYS}
+    expected = {**expected_launches(cfg.pipeline.model), "bin": 1, "raster": 2}
+    first = inputs(as_batch(items[0]))
+    _counted_run("validate", lambda: pipe.eval_step(first), expected)
+    viz = Visualizer(cfg.pipeline.visualizer)
+    own, repeat = tmp / "val_own", tmp / "val_repeat"
+    stages: dict = {}
+    restore = [_timed_stage(stages, "labeled overlays", V, "labeled_instance_overlay"),
+               _timed_stage(stages, "labeled overlays", V, "labeled_gt_overlay")]
+    coverage = []
+    for item in items:
+        b = as_batch(item)
+        x = inputs(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, render, qc = pipe.eval_step(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        viz.add_eval_step(str(own), b, out, render, qc=qc, m2f=m2f)
+        t2 = time.perf_counter()
+        viz.write_files()
+        t3 = time.perf_counter()
+        for name, dt in (("eval step", t1 - t0), ("segments_info, lift, scene arrays", t2 - t1), ("PNG writes", t3 - t2)):
+            stages[name] = stages.get(name, 0.0) + dt
+        coverage.append(render.alpha.mean().item())
+    stages["segments_info, lift, scene arrays"] -= stages.get("labeled overlays", 0.0)
+    for undo in restore:
+        undo()
+    if min(coverage) < MIN_COVERAGE:
+        raise AssertionError(f"validate: the target views see almost nothing (mean alpha per scene {coverage})")
+    # the same eval steps again in this process: whether a repeat is bitwise
+    # the same tells a nondeterministic step from one that differs between
+    # processes
+    for item in items:
+        b = as_batch(item)
+        out, render, qc = pipe.eval_step(inputs(b))
+        viz.add_eval_step(str(repeat), b, out, render, qc=qc, m2f=m2f)
+        viz.write_files()
+    del out, render, qc
+    evaluator = E.Evaluator(cfg.pipeline.evaluator, device="cuda")
+    restore = [_timed_stage(stages, "evaluator: ssim", M, "ssim"), _timed_stage(stages, "evaluator: psnr", M, "psnr"),
+               _timed_stage(stages, "evaluator: lpips", E.Evaluator, "_lpips"),
+               _timed_stage(stages, "evaluator: mAP", M.MeanAveragePrecision, "compute"),
+               _timed_stage(stages, "evaluator: PQ", M.PanopticQuality, "update")]
+    t0 = time.perf_counter()
+    want = evaluator.evaluate(str(own))
+    stages["evaluator: all"] = time.perf_counter() - t0
+    for undo in restore:
+        undo()
+    repeat_files = _png_diff(own, repeat)  # before the evaluator writes its scores there
+    repeat_excess = _results_excess(evaluator.evaluate(str(repeat)), want, [k for k in RESULT_KEYS if k in want])
+    if any(n for _, n, _ in repeat_files.values()):
+        raise AssertionError(f"validate: this process's eval steps, repeated on the same items, wrote other files "
+                             f"{repeat_files}")
+    agree = _label_agreement(out_dir, own)
+    cli_files = _png_diff(out_dir, own)
+    swapped = _swapped_results(evaluator, out_dir, own, tmp)
+    shutil.rmtree(repeat)
+    excess = _compare_sweeps("validate", got, want, agree, PROCESS_LIMITS, swapped)
+    per_scene = {k: v / VAL_SCENES * 1e3 for k, v in stages.items()}
+    res = dict(results=got, sweep=sweep, cli_seconds=cli_s, own_ms_per_scene=per_scene, launches=expected,
+               excess=excess, label_agreement=agree, cli_files=cli_files, mean_alpha=coverage)
+    steps = ", ".join(f"{s:.3f}" for s in sweep["step_seconds"])
+    hosts = ", ".join(f"{s:.3f}" for s in sweep["host_seconds"])
+    log("validate", f"siu3r_tpu_torch.cli.validate, ViT-L 2-view 256x256 B=1 fp32, {VAL_SCENES} synthetic ScanNet "
+                    f"scenes of 2 context + 6 target views, --ckpt: {cli_s:.1f} s in its own process; per batch step "
+                    f"s [{steps}], host s [{hosts}]; {sweep.get('ms_per_scene', 0):.1f} ms/scene eval step "
+                    f"({sweep.get('scenes_per_sec', 0):.2f} scenes/s, batches 2-{VAL_SCENES}); evaluator "
+                    f"{sweep['evaluate_seconds']:.2f} s")
+    log("validate", "results.json: " + json.dumps({k: got[k] for k in RESULT_KEYS}))
+    log("validate", f"this process's eval steps on the same items (mean alpha per scene "
+                    f"{[round(c, 3) for c in coverage]}), repeated: every file bitwise the same (the evaluator's "
+                    f"results on the two differ by {({k: float(f'{v:.3g}') for k, v in repeat_excess.items()})}); "
+                    f"files [n, differing, largest pixel difference] against the CLI's {cli_files}")
+    log("validate", f"against the CLI's results.json: label maps agree {agree:.6f}, image metrics within "
+                    f"{PROCESS_LIMITS}, mIoU, PQ and mAP within {CLI_ATOL} of this process's evaluator on the CLI's "
+                    f"label maps (and of this sweep's where the label maps are equal); excess "
+                    f"{({k: float(f'{v:.3g}') for k, v in excess.items()})}; one eval step's launches {expected} "
+                    f"(phase eval's), no host sync inside it")
+    log("validate", "this process's sweep by stage, ms per scene: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(per_scene.items(), key=lambda kv: -kv[1])))
+    _SWEEP["dir"], _SWEEP["results"] = out_dir, got
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_evaluate() -> dict:
+    """``python -m siu3r_tpu_torch.cli.evaluate --eval_path <the validate
+    phase's directory>`` (its own process) gives the sweep's results.json
+    value for value (within CLI_ATOL)."""
+    if "dir" not in _SWEEP:
+        phase_validate()
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "siu3r_tpu_torch.cli.evaluate", "--eval_path", str(_SWEEP["dir"])],
+                         cwd=here, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise RuntimeError(f"evaluate exited {cli.returncode}:\n{cli.stderr[-4000:]}")
+    got = json.loads(cli.stdout[cli.stdout.index("{"):])
+    want = _SWEEP["results"]
+    keys = [k for k in want if not k.endswith("per_class")]
+    excess = _results_excess(got, want, keys)
+    per_class = all(np.allclose(got[k], want[k], rtol=0, atol=CLI_ATOL) for k in want if k.endswith("per_class"))
+    if got.keys() != want.keys() or max(excess.values()) > CLI_ATOL or not per_class:
+        raise AssertionError(f"evaluate: {got} vs the sweep's {want}")
+    log("evaluate", f"siu3r_tpu_torch.cli.evaluate on the validate phase's directory ({seconds:.1f} s, its own "
+                    f"process): results.json value for value (worst {max(excess.values()):.3g}, per-class lists "
+                    f"within {CLI_ATOL})")
+    return dict(seconds=seconds, worst=max(excess.values()))
+
+
+def _train_cli(root: Path, out: Path, max_steps: int, resume: Path) -> tuple[float, str]:
+    """``python -m siu3r_tpu_torch.cli.train --resume resume`` (its own
+    process) on configs/scannet.yaml at ``root``, k = 2, a visualisation
+    every 2 steps, a record every step; (seconds, its standard output)."""
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "siu3r_tpu_torch.cli.train", "--resume", str(resume),
+                          "--config", str(here / "configs" / "scannet.yaml"), "trainer.devices=1",
+                          f"trainer.max_steps={max_steps}", "trainer.accumulate_grad_batches=2",
+                          "pipeline.log_training_result_interval=2", "trainer.log_every_n_steps=1",
+                          "datamodule.train_loader_cfg.num_workers=2", f"datamodule.dataset_cfg.root={root}",
+                          f"output_path={out}"],
+                         cwd=here, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise RuntimeError(f"train exited {cli.returncode}:\n{cli.stdout[-3000:]}\n{cli.stderr[-4000:]}")
+    return seconds, cli.stdout
+
+
+def _train_records(out: Path) -> list:
+    records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in records if "train/total" in r]
+
+
+def _adam_moves(pipe, before: dict, after, lrs: list) -> dict:
+    """Per top-level module ("frozen" for the frozen encoder): the largest
+    |after - before + sum(lrs) x wd x before| / lrs[0] over its parameters,
+    after len(lrs) optimizer steps at those learning rates (per group), from
+    the parameters ``before``: the move with AdamW's decay taken out, in
+    units of the first step's learning rate. An Adam step moves an entry
+    with any gradient by about its learning rate; the decay alone moves it
+    by lr x wd x |p|, taken out here (exactly for one step, to terms of
+    order lr^2 x wd for two)."""
+    from siu3r_tpu_torch.train.optimizer import group_of
+
+    wd = pipe.optimizer.inner.weight_decay
+    moves: dict = {}
+    for n, p0 in before.items():
+        group = group_of(n, True)
+        part = "frozen" if group == "frozen" else n.split(".")[0]
+        p1 = after(n)
+        if group == "frozen":
+            move = (p1 - p0).abs().max().item()
+        else:
+            rates = [pipe.optimizer.lr(group, step) for step in lrs]
+            move = (p1 - p0 + sum(rates) * wd * p0).abs().max().item() / rates[0]
+        moves[part] = max(moves.get(part, 0.0), move)
+    return moves
+
+
+TRAINED_PARTS = ("mask2former", "adapter", "gaussian_param_head1", "gaussian_param_head2", "downstream_head1",
+                 "downstream_head2")
+MIN_ADAM_MOVE = 0.5  # of the learning rate: a part with any gradient moves about 1
+
+
+def _check_moves(phase: str, moves: dict) -> None:
+    """The frozen encoder did not move; every trained part moved by more
+    than its decay, by at least MIN_ADAM_MOVE of its learning rate (a part
+    that no gradient reaches, as through a render that composites nothing,
+    moves by its decay alone, about 0)."""
+    slow = {k: moves.get(k, 0.0) for k in TRAINED_PARTS if not moves.get(k, 0.0) > MIN_ADAM_MOVE}
+    if moves["frozen"] != 0.0 or slow:
+        raise AssertionError(f"{phase}: moves (decay taken out, in learning rates) {moves}: the frozen encoder "
+                             f"moved, or {slow} below {MIN_ADAM_MOVE}")
+
+
+def phase_train_cli() -> dict:
+    """``python -m siu3r_tpu_torch.cli.train --config configs/scannet.yaml
+    trainer.devices=1 trainer.max_steps=4 trainer.accumulate_grad_batches=2
+    pipeline.log_training_result_interval=2`` (its own process) at full
+    width and B = 3 on the synthetic root (two steps an epoch), from a
+    training state before the first epoch (``--resume`` of epoch -1, step 0)
+    whose weights W are a seeded init biased by ``_scored`` so that the
+    data's target views see the Gaussians: four finite records in
+    metrics.jsonl, rgb, rgb_gt and depth PNGs under train_viz/, one
+    checkpoint, whose frozen encoder equals W's and whose trained parts, the
+    Gaussian and depth heads included, moved from W by more than their decay
+    (``_check_moves``: gradients reached every head through the render);
+    then ``--resume`` of it for one more epoch, from epoch 2 at global step
+    4, with finite losses. In this process from W at full width, B = 3,
+    k = 2: every parameter bitwise unchanged after micro-step 1; after
+    micro-step 2 the frozen encoder unchanged and every trained part moved
+    by more than its decay; one micro-step's launches; then micro-steps
+    timed, each recorded and held to MIN_COVERAGE and MIN_SWEPT, with their
+    host syncs and peak memory; the binning, raster and raster_bwd kernels
+    held against their plain versions on a timed micro-step's own inputs;
+    and the training state's size on disk, save and restore seconds."""
+    from siu3r_tpu_torch.checkpoint_io import restore_train_state, save_train_state
+    from siu3r_tpu_torch.cli.train import build_dataset, step_generator
+    from siu3r_tpu_torch.kernels import _build
+    from siu3r_tpu_torch.data import Loader
+    from siu3r_tpu_torch.pipeline import Pipeline
+    from siu3r_tpu_torch.train.optimizer import MultiSteps
+
+    root = _sweep_root()
+    tmp = Path(_SWEEP["tmp"].name)
+    cfg = _sweep_cfg(root)
+    cfg.mode = "train"
+    cfg.datamodule.dataset_cfg.num_extra_target_views = 2
+    cfg.trainer.accumulate_grad_batches = 2
+    loader = Loader(build_dataset(cfg, train=True), batch_size=cfg.datamodule.train_loader_cfg.batch_size,
+                    num_workers=2, seed=0)
+    pipe = Pipeline(cfg, device="cuda", seed=5).init_train(steps_per_epoch=len(loader))
+    _scored(pipe.model, 4, depth=0.5, scale=30.0)  # the data's cameras, as phase validate
+    params = dict(pipe.model.named_parameters())
+    start = tmp / "start.pt"
+    save_train_state(start, pipe, -1, 0)
+
+    out, resumed = tmp / "train_cli", tmp / "train_resumed"
+    first_s, stdout = _train_cli(root, out, TRAIN_CLI_STEPS, resume=start)
+    start.unlink()
+    records = _train_records(out)
+    viz_dirs = {p.parent.name for p in (out / "train_viz").rglob("*.png")}
+    ckpts = sorted((out / "checkpoints").iterdir())
+    if ("epoch 0, step 0" not in stdout or [r["step"] for r in records] != list(range(TRAIN_CLI_STEPS))
+            or not all(math.isfinite(r["train/total"]) and math.isfinite(r["lr"]) for r in records)
+            or not {"rgb", "rgb_gt", "depth"} <= viz_dirs or [c.name for c in ckpts] != ["epoch001-4"]):
+        raise AssertionError(f"train_cli: records {records}, train_viz {viz_dirs}, checkpoints {ckpts}:\n"
+                             f"{stdout[-2000:]}")
+    ckpt_bytes = ckpts[0].stat().st_size
+    saved = torch.load(ckpts[0], map_location="cpu", mmap=True, weights_only=False)["model"]
+    cli_moves = _adam_moves(pipe, {n: p.detach() for n, p in params.items()},
+                            lambda n: saved[n].to("cuda", non_blocking=True), [0, 1])
+    del saved
+    _check_moves("train_cli (the CLI's checkpoint against W)", cli_moves)
+    resumed_s, stdout = _train_cli(root, resumed, TRAIN_CLI_STEPS + TRAIN_CLI_RESUMED, resume=ckpts[0])
+    rrec = _train_records(resumed)
+    if ("epoch 2, step 4" not in stdout
+            or [r["step"] for r in rrec] != list(range(TRAIN_CLI_STEPS, TRAIN_CLI_STEPS + TRAIN_CLI_RESUMED))
+            or {r["epoch"] for r in rrec} != {2} or not all(math.isfinite(r["train/total"]) for r in rrec)):
+        raise AssertionError(f"train_cli: the resumed run's records {rrec}:\n{stdout[-2000:]}")
+    for d in (out / "checkpoints", resumed / "checkpoints"):
+        shutil.rmtree(d)
+    log("train_cli", f"siu3r_tpu_torch.cli.train, configs/scannet.yaml (ViT-L 2-view 256x256 fp32, B=3, 2 + 4 "
+                     f"views), k=2, max_steps {TRAIN_CLI_STEPS}, from W at epoch -1: {first_s:.1f} s in its own "
+                     f"process, totals {[round(r['train/total'], 4) for r in records]}, train_viz "
+                     f"{sorted(viz_dirs)}, checkpoint {ckpts[0].name} ({ckpt_bytes / 2**30:.3f} GiB), its moves from "
+                     f"W (decay out, in learning rates) {({k: round(v, 3) for k, v in cli_moves.items()})}; "
+                     f"--resume: epoch 2 at step 4, {resumed_s:.1f} s, totals "
+                     f"{[round(r['train/total'], 4) for r in rrec]}")
+
+    # this process, from W: the accumulation at full width, then timing
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items() if isinstance(v, np.ndarray)}
+               for b in loader]
+    if not isinstance(pipe.optimizer, MultiSteps) or batches[0]["context_views_images"].shape[0] != 3:
+        raise AssertionError("train_cli: not accumulating, or not at B = 3")
+    before = {n: p.detach().clone() for n, p in params.items()}
+    pipe.train_step(batches[0], step_generator(0, 0, "cuda"))
+    changed = [n for n, p in params.items() if not torch.equal(p.detach(), before[n])]
+    if changed or pipe.optimizer.count != 0:
+        raise AssertionError(f"train_cli: micro-step 1 of 2 moved {changed[:5]} (count {pipe.optimizer.count})")
+    losses = pipe.train_step(batches[1], step_generator(0, 1, "cuda"))
+    moves = _adam_moves(pipe, before, lambda n: params[n].detach(), [0])
+    del before
+    if pipe.optimizer.count != 1 or not all(math.isfinite(float(x)) for x in losses.values()):
+        raise AssertionError(f"train_cli: after micro-step 2 count {pipe.optimizer.count}, losses {losses}")
+    _check_moves("train_cli (micro-step 2)", moves)
+    gen = step_generator(0, 2, "cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    n_syncs, sources = _count_syncs(lambda: pipe.train_step(batches[0], gen))
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    expected = {**expected_launches(cfg.pipeline.model), "bin": 1, "raster": 1, "raster_bwd": 1}
+    if launches != expected:
+        raise AssertionError(f"train_cli: micro-step launches {launches} != expected {expected}")
+    check_msda_variants(expected["msda"])
+    lap_syncs = sum(n for where, n in sources.items() if "lap.py:" in where)
+
+    # timed micro-steps, each recorded: every one must see the scene and
+    # composite real work (MIN_COVERAGE, MIN_SWEPT)
+    torch.cuda.reset_peak_memory_stats()
+    clock0 = sm_clock()
+    times, occupancy = [], []
+    for i in range(4):
+        with _render_calls() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.train_step(batches[i % len(batches)], gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        occupancy.append(_occupancy(calls))
+    clock1 = sm_clock()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    alphas, swepts = zip(*occupancy)
+    if min(alphas) < MIN_COVERAGE or min(swepts) < MIN_SWEPT:
+        raise AssertionError(f"train_cli: timed micro-steps: mean alpha {alphas}, chunks swept per live tile "
+                             f"{swepts}: below {MIN_COVERAGE} or {MIN_SWEPT}")
+    # the render kernels on the last timed micro-step's own inputs (4 target
+    # views of each of the 3 items)
+    if len(calls["bin"]) != 1 or len(calls["raster"]) != 1:
+        raise AssertionError(f"train_cli: recorded {len(calls['bin'])} binning and {len(calls['raster'])} raster "
+                             f"calls")
+    table, counts, rparams, colors = (calls["raster"][0][k].detach() for k in ("table", "counts", "params", "colors"))
+    kernels = {"bin": check_bin("train_cli_step", calls["bin"][0]["proj"], calls["bin"][0]["max_per_tile"], 10),
+               "raster": check_raster("train_cli_step_C3", table, counts, rparams, colors, 10),
+               "raster_bwd": check_raster_bwd("train_cli_step_C3", table, counts, rparams, colors, 5,
+                                              torch.Generator(device="cuda").manual_seed(9))}
+    del calls, table, counts, rparams, colors
+    device_ms, top = _device_breakdown(lambda: pipe.train_step(batches[0], gen), 1)
+    ops = _ops_by_device_time(lambda: pipe.train_step(batches[0], gen))
+    if pipe.optimizer.mini_step == 0:
+        pipe.train_step(batches[0], gen)  # save in the middle of an accumulation: the larger state
+    state = tmp / "state.pt"
+    t0 = time.perf_counter()
+    save_train_state(state, pipe, 0, 7)
+    save_s = time.perf_counter() - t0
+    size = state.stat().st_size
+    t0 = time.perf_counter()
+    restore_train_state(state, pipe)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state.unlink()
+    med = statistics.median(times)
+    res = dict(first_run_s=first_s, resumed_s=resumed_s, totals=[r["train/total"] for r in records],
+               resumed_totals=[r["train/total"] for r in rrec], cli_checkpoint_gib=ckpt_bytes / 2**30,
+               cli_moves=cli_moves, moves=moves, launches=launches, kernels=kernels, micro_step_median_s=med,
+               micro_step_s=times, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=top,
+               top_ops_device_ms=ops, micro_steps_per_s=1.0 / med, peak_gib=peak, host_syncs=n_syncs,
+               lap_syncs=lap_syncs, sync_sources=sources, mean_alpha=list(alphas), swept_per_live_tile=list(swepts),
+               state_gib=size / 2**30, save_s=save_s, restore_s=restore_s, sm_clock=[clock0, clock1])
+    log("train_cli", f"this process from W, Pipeline.train_step at k=2, ViT-L 2-view 256x256 B=3 fp32 (2 + 4 views, "
+                     f"{batches[0]['gt_masks'].shape[1]} objects): micro-step 1 left every parameter bitwise "
+                     f"unchanged; micro-step 2's moves (decay out, in learning rates) "
+                     f"{({k: round(v, 3) for k, v in moves.items()})}")
+    log("train_cli", f"median of 4 warm micro-steps {med * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max "
+                     f"{max(times) * 1e3:.1f}) = {1.0 / med:.3f} micro-steps/s ({0.5 / med:.3f} optimizer steps/s), "
+                     f"peak memory {peak:.3f} GiB; device busy {device_ms:.2f} ms a micro-step, idle share "
+                     f"{res['idle_share']:.3f}; per timed micro-step mean alpha {[round(a, 3) for a in alphas]}, "
+                     f"chunks swept per live tile {[round(x, 2) for x in swepts]}; launches per micro-step "
+                     f"{launches} (expected); host syncs per micro-step {n_syncs} (the LAP's {lap_syncs}); "
+                     f"training state mid-accumulation {size / 2**30:.3f} GiB on disk, saved in {save_s:.2f} s, "
+                     f"restored in {restore_s:.2f} s; SM clock {clock0} -> {clock1}")
+    log("train_cli", "the micro-step's render kernels: " + "; ".join(
+        f"{k} {r['ms']:.5f} ms (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.5f}, {r['bound_by']})"
+        for k, r in kernels.items()))
+    for name, ms in top[:8]:
+        log("train_cli", f"  device {ms:8.3f} ms  {name[:100]}")
+    for name, shapes, ms in ops[:8]:
+        log("train_cli", f"  op {ms:8.3f} ms  {name} {shapes}"[:220])
+    del pipe, params, batches
+    torch.cuda.empty_cache()
+    _SWEEP["tmp"].cleanup()
+    _SWEEP.clear()
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2486,7 +3230,22 @@ PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "ras
           "train": phase_train, "cli": phase_cli, "multi_slice": phase_multi_slice,
           "multi_forward": phase_multi_forward, "multi_eval": phase_multi_eval, "multi_train": phase_multi_train,
           "multi_cli": phase_multi_cli, "refer_slice": phase_refer_slice, "refer_forward": phase_refer_forward,
-          "refer_eval": phase_refer_eval, "refer_train": phase_refer_train, "refer_cli": phase_refer_cli}
+          "refer_eval": phase_refer_eval, "refer_train": phase_refer_train, "refer_cli": phase_refer_cli,
+          "val_slice": phase_val_slice, "validate": phase_validate, "evaluate": phase_evaluate,
+          "train_cli": phase_train_cli}
+
+
+SM_CLOCKS: dict = {}  # phase -> the SM clock (current, max) at its start and end
+
+
+def run_phase(name: str):
+    """Run phase ``name`` between two samples of the SM clock, logged on the
+    phase's lines."""
+    start = sm_clock()
+    out = PHASES[name]()
+    SM_CLOCKS[name] = [start, sm_clock()]
+    log(name, f"SM clock (current, max) at the start {SM_CLOCKS[name][0]}, at the end {SM_CLOCKS[name][1]}")
+    return out
 
 
 def _raster_sum(checks: list) -> dict:
@@ -2512,30 +3271,34 @@ def main(argv=None) -> None:
     smi = phase_environment()
     phase_build()
     if set(phases) != set(PHASES):
-        for name, phase in PHASES.items():
+        for name in PHASES:
             if name in phases:
-                phase()
+                run_phase(name)
         log("done", f"phases {phases} passed; no JSON lines (they need every phase)")
         return
-    per_kernel = phase_kernels()
-    render_err = phase_render_kernels()
-    bwd_err = phase_raster_bwd()
-    phase_autograd()
-    phase_slice_check()
-    fwd = phase_forward()
-    ev = phase_eval()
-    tr = phase_train()
-    phase_cli()
-    phase_multi_slice()
-    mfwd = phase_multi_forward()
-    mev = phase_multi_eval()
-    mtr = phase_multi_train()
-    phase_multi_cli()
-    phase_refer_slice()
-    rfwd = phase_refer_forward()
-    rev = phase_refer_eval()
-    rtr = phase_refer_train()
-    rcli = phase_refer_cli()
+    per_kernel = run_phase("kernels")
+    render_err = run_phase("render_kernels")
+    bwd_err = run_phase("raster_bwd")
+    run_phase("autograd")
+    run_phase("slice")
+    fwd = run_phase("forward")
+    ev = run_phase("eval")
+    tr = run_phase("train")
+    run_phase("cli")
+    run_phase("multi_slice")
+    mfwd = run_phase("multi_forward")
+    mev = run_phase("multi_eval")
+    mtr = run_phase("multi_train")
+    run_phase("multi_cli")
+    run_phase("refer_slice")
+    rfwd = run_phase("refer_forward")
+    rev = run_phase("refer_eval")
+    rtr = run_phase("refer_train")
+    rcli = run_phase("refer_cli")
+    vsl = run_phase("val_slice")
+    val = run_phase("validate")
+    evl = run_phase("evaluate")
+    tcli = run_phase("train_cli")
 
     # per kernel: the two-view path's launches and times (model kernels per
     # forward, at its shapes; render kernels per eval step and kernel 6 per
@@ -2551,6 +3314,7 @@ def main(argv=None) -> None:
     worst = {**{k: max(two_view[k]["err"], rfwd["kernels"][k]["err"]) for k in per_kernel}, "bin": render_err["bin"],
              "raster": max(render_err["raster"], two_view["raster"]["err"]),
              "raster_bwd": max(bwd_err, tr["raster_bwd"]["err"])}
+    worst.update({k: max(worst[k], r["err"]) for k, r in tcli["kernels"].items()})
     # the refer path's: the model kernels per refer forward on its own inputs
     # (the language layers' attention shape also on its own); no render
     kernels = []
@@ -2571,13 +3335,20 @@ def main(argv=None) -> None:
                            "bound_ms": macc["bound_ms"], "bound_by": macc["bound_by"],
                            "library_ms": macc.get("library_ms")},
             "refer": refer,
+            # this slice's paths: one eval step of the validation sweep, one
+            # micro-step of the training loop (B = 3, k = 2)
+            "validate": {"launches": val["launches"].get(name, 0)},
+            "train_cli": {"launches": tcli["launches"].get(name, 0),
+                          **({k: tcli["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                             if name in tcli["kernels"] else {})},
         })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr, "multi_forward": mfwd,
              "multi_eval": mev, "multi_train": mtr, "refer_forward": rfwd, "refer_eval": rev, "refer_train": rtr,
-             "refer_cli": rcli}, indent=1))
+             "refer_cli": rcli, "val_slice": vsl, "validate": val, "evaluate": evl, "train_cli": tcli,
+             "sm_clock": SM_CLOCKS}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

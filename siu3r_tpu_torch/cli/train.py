@@ -1,12 +1,37 @@
-"""The training entry point's dataset dispatch, counterpart of
-``siu3r_tpu/cli/train.py:build_dataset``.
+"""The training entry point, counterpart of ``siu3r_tpu/cli/train.py``
+(reference src/run.py), on one device.
 
-Only ``build_dataset`` is here for now; the training loop with gradient
-accumulation, checkpointing and the closing validation sweep
-(``siu3r_tpu/cli/train.py:main``) comes with the distributed training slice.
+Usage:
+    python -m siu3r_tpu_torch.cli.train --config configs/scannet.yaml \
+        [--resume out/checkpoints/epoch003-120] [--device cuda] [key.path=value ...]
+
+Builds the dataset and loader, runs ``Pipeline.train_step`` over them
+(``trainer.accumulate_grad_batches`` micro-steps to an optimizer step),
+logs the losses and the base group's learning rate to ``metrics.jsonl``
+every ``trainer.log_every_n_steps`` steps, writes the eval step's renders of
+the train batch through the Visualizer every
+``pipeline.log_training_result_interval`` steps (under ``train_viz/``), and
+saves the training state every ``trainer.check_val_every_n_epoch`` epochs,
+at the last epoch and at ``trainer.max_steps`` (under ``checkpoints/``).
+``--resume`` continues from such a state at its epoch + 1 and global step:
+the loader's order and the dataset's view draws are functions of (seed,
+epoch), and each step's random draws come from a generator seeded with
+(seed + 1, global step), so with one loader worker the resumed run trains
+as the uninterrupted one would have.
+
+Runs on the GPU unless ``--device cpu`` is given. ``trainer.devices`` above
+1 is logged and training runs on the one device; data parallelism waits for
+the distributed slice.
 """
 
 from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
 
 
 def build_dataset(cfg, train: bool):
@@ -38,3 +63,118 @@ def build_dataset(cfg, train: bool):
         image_size=dcfg.image_width,
         max_objects=dcfg.max_objects,
     )
+
+
+def step_generator(seed: int, global_step: int, device):
+    """The random draws of step ``global_step`` (the criterion's sample
+    points): a generator on ``device`` seeded with (seed + 1, global_step),
+    so that a resumed run continues the stream instead of replaying it."""
+    import torch
+
+    return torch.Generator(device=device).manual_seed(((seed + 1) << 32) + global_step)
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, default=None)
+    parser.add_argument("--resume", type=str, default=None,
+                        help="training state to resume from (parameters, optimizer, counters)")
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("overrides", nargs="*")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from siu3r_tpu_torch.checkpoint_io import restore_train_state, save_train_state
+    from siu3r_tpu_torch.config import bind_scannet_classes, load_config
+    from siu3r_tpu_torch.data import Loader
+    from siu3r_tpu_torch.device import resolve_device
+    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline
+    from siu3r_tpu_torch.train.optimizer import make_lr_schedule
+    from siu3r_tpu_torch.utils.logging import MetricsHistory, RankedLogger
+    from siu3r_tpu_torch.visualizer import Visualizer
+
+    log = RankedLogger(__name__)
+    device = resolve_device(args.device)
+    cfg = bind_scannet_classes(load_config(args.config, args.overrides))
+    out_dir = Path(cfg.output_path or f"outputs/{cfg.mode}/{cfg.experiment}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    history = MetricsHistory(out_dir)
+
+    dataset = build_dataset(cfg, train=cfg.mode == "train")
+    loader = Loader(
+        dataset,
+        batch_size=cfg.datamodule.train_loader_cfg.batch_size,
+        num_workers=cfg.datamodule.train_loader_cfg.num_workers,
+        shuffle=cfg.mode == "train",
+        seed=cfg.seed,
+    )
+    steps_per_epoch = max(len(loader), 1)
+    if cfg.trainer.devices > 1:
+        log.info(f"trainer.devices={cfg.trainer.devices}: training runs on the one device {device}")
+    pipe = Pipeline(cfg, device=device, seed=cfg.seed).init_train(steps_per_epoch=steps_per_epoch)
+    log.info(f"device {device}; steps/epoch {steps_per_epoch}; "
+             f"accumulate_grad_batches {cfg.trainer.accumulate_grad_batches}")
+
+    start_epoch, global_step = 0, 0
+    if args.resume:
+        epoch, global_step = restore_train_state(args.resume, pipe)
+        start_epoch = epoch + 1
+        log.info(f"resumed {args.resume}: epoch {start_epoch}, step {global_step}")
+
+    # LearningRateMonitor equivalent: the base group's schedule
+    lr_of = make_lr_schedule(cfg.optimizer.lr, cfg.optimizer.warm_up_epochs, cfg.trainer.max_epochs,
+                             steps_per_epoch)
+    viz_interval = cfg.pipeline.log_training_result_interval
+    viz = Visualizer(cfg.pipeline.visualizer)
+
+    def write_train_viz(batch, inputs, step):
+        """The eval step on the train batch, its renders and overlays under
+        ``train_viz/step…`` (reference src/pipeline.py:271-280)."""
+        out, render, _ = pipe.eval_step({k: inputs[k] for k in EVAL_KEYS})
+        save_dir = out_dir / "train_viz" / f"step{step:07d}"
+        viz.add_eval_step(str(save_dir), batch, out, render)
+        viz.write_files()
+        log.info(f"wrote training visualization: {save_dir}")
+
+    max_steps = cfg.trainer.max_steps
+    saved = []
+    for epoch in range(start_epoch, cfg.trainer.max_epochs):
+        t_epoch = time.time()
+        loader.set_epoch(epoch)
+        for batch in loader:
+            if max_steps >= 0 and global_step >= max_steps:
+                break
+            inputs = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+                      if isinstance(v, np.ndarray) and v.dtype != object}
+            losses = pipe.train_step(inputs, step_generator(cfg.seed, global_step, device))
+            # a refer batch has no target views to render
+            if viz_interval > 0 and global_step % viz_interval == 0 and "target_views_images" in batch:
+                try:
+                    write_train_viz(batch, inputs, global_step)
+                except OSError as e:  # a full or unwritable disk must not end training; a kernel's error does
+                    log.warning(f"train viz failed at step {global_step}: {e}")
+            if global_step % cfg.trainer.log_every_n_steps == 0:
+                keep = ("render_mse", "depth_smoothness", "seg", "lpips", "total", "word_match")
+                vals = {k: float(v) for k, v in losses.items() if "_" not in k or k in keep}
+                log.info(f"epoch {epoch} step {global_step}: " + json.dumps(vals))
+                history.log(global_step, epoch=epoch, lr=lr_of(global_step),
+                            **{f"train/{k}": v for k, v in vals.items()})
+            global_step += 1
+        log.info(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s")
+        history.log(global_step, epoch=epoch, epoch_seconds=time.time() - t_epoch)
+        hit_max_steps = max_steps >= 0 and global_step >= max_steps
+        if ((epoch + 1) % cfg.trainer.check_val_every_n_epoch == 0 or epoch == cfg.trainer.max_epochs - 1
+                or hit_max_steps):
+            ckpt = out_dir / "checkpoints" / f"epoch{epoch:03d}-{global_step}"
+            ckpt.parent.mkdir(parents=True, exist_ok=True)
+            save_train_state(ckpt, pipe, epoch, global_step)
+            saved.append(str(ckpt))
+            log.info(f"saved checkpoint {ckpt}")
+        if hit_max_steps:
+            break
+    return {"global_step": global_step, "checkpoints": saved}
+
+
+if __name__ == "__main__":
+    main()

@@ -68,6 +68,7 @@ class MultiViewSceneDataset:
         self.seg_task = seg_task
         self.max_objects = max_objects
         self.image_size = image_size
+        self.seed = seed
         self.rng = random.Random(seed)
 
         if train:
@@ -96,6 +97,13 @@ class MultiViewSceneDataset:
         if self.train:
             return len(self.scan_names) * self.spec.epoch_mult
         return len(self.val_pairs)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Restart the train views' random stream at (seed, epoch) (epoch 0
+        is the stream the dataset starts with), so that a resumed run draws
+        the views the uninterrupted run drew in that epoch. The draws follow
+        the order items are loaded in: one loader worker keeps it fixed."""
+        self.rng = random.Random(self.seed + 1_000_003 * int(epoch))
 
     # -- IO helpers (native libjpeg/libpng decode via data/native_io.py,
     # PIL fallback) ---------------------------------------------------------
@@ -304,6 +312,10 @@ class ConcatSceneDataset:
 
     def __len__(self) -> int:
         return sum(self._lens)
+
+    def set_epoch(self, epoch: int) -> None:
+        for d in self.datasets:
+            d.set_epoch(epoch)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         if idx < 0:

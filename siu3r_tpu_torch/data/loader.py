@@ -54,8 +54,12 @@ class Loader:
         """Make the shuffle order a pure function of (seed, epoch) so a
         resumed run re-derives the same order the original run would have
         used at this epoch (torch DistributedSampler.set_epoch semantics;
-        the reference's Lightning resume restores loop/sampler state)."""
+        the reference's Lightning resume restores loop/sampler state), and
+        restart the dataset's own random stream for the epoch where it has
+        one (``set_epoch``)."""
         self.epoch = int(epoch)
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self) -> int:
         n = len(self.dataset)

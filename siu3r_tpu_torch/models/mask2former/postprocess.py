@@ -1,6 +1,7 @@
 """Dense panoptic post-process and the Gaussian query-class lift, counterpart
-of ``siu3r_tpu/models/mask2former/postprocess.py`` (``panoptic_segmentation``
-and ``qc_logits_per_pixel``).
+of ``siu3r_tpu/models/mask2former/postprocess.py`` (``panoptic_segmentation``,
+``qc_logits_per_pixel``, ``instance_segmentation`` and the host-side
+``segments_info``).
 
 Masks are resized to the fixed 256x256 mask size, sigmoided, then resized to
 the target size; each pixel goes to the kept query with the highest
@@ -15,7 +16,7 @@ to the host.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -152,3 +153,76 @@ def qc_logits_per_pixel(result: Dict[str, torch.Tensor]) -> torch.Tensor:
     b, s, v, h, w = qc_mask.shape
     prod = qc_class[:, :, None, :] * qc_mask.reshape(b, s, v * h * w)[..., None]
     return prod.transpose(1, 2)
+
+
+def instance_segmentation(
+    class_logits: torch.Tensor,
+    mask_logits: torch.Tensor,
+    *,
+    target_size: Tuple[int, int],
+    num_labels: int,
+    num_topk: int = 10,
+    threshold: float = 0.5,
+) -> Dict[str, torch.Tensor]:
+    """Instance post-processing (reference
+    image_processing_video_mask2former.py:1057-1237): the top ``num_topk``
+    (query, class) pairs by class score (ties to the lower index, as
+    ``lax.top_k``), masks binarised at logit 0, mask-quality-weighted scores,
+    sequential instance ids in top-k order with later instances overwriting
+    overlaps; the per-query confidence factored as (class_probs, mask_probs).
+    class_logits [B, Q, C+1], mask_logits [B, Q, V, h, w]."""
+    b, q, v, mh, mw = mask_logits.shape
+    th, tw = target_size
+    k = num_topk
+    ml = resize_nhwc(mask_logits.reshape(b * q * v, mh, mw, 1), MASK_SIZE, align_corners=False)
+    ml = ml.reshape(b, q, v, *MASK_SIZE)
+    class_probs = torch.softmax(class_logits, dim=-1)
+    flat = class_probs[..., :-1].reshape(b, -1)  # [B, Q*C]
+    top_scores, top_idx = torch.sort(flat, dim=1, descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    labels = top_idx % num_labels
+    queries = top_idx // num_labels
+    sel = ml[torch.arange(b, device=ml.device)[:, None], queries]  # [B, K, V, 256, 256]
+    binarized = (sel > 0).to(sel.dtype)
+    area = binarized.sum(dim=(2, 3, 4))
+    mask_quality = (torch.sigmoid(sel) * binarized).sum(dim=(2, 3, 4)) / (area + 1e-6)
+    pred_scores = top_scores * mask_quality
+    resized = resize_nhwc(binarized.reshape(b * k * v, *MASK_SIZE, 1), (th, tw), align_corners=False)
+    resized = resized.reshape(b, k, v, th, tw)
+    keep = (pred_scores >= threshold) & (area > 0)
+    seg = torch.full((b, v, th, tw), -1, dtype=torch.int32, device=ml.device)
+    seg_id = (torch.cumsum(keep, dim=1) - 1).to(torch.int32)
+    for j in range(k):
+        write = keep[:, j, None, None, None] & (resized[:, j] == 1.0)
+        seg = torch.where(write, seg_id[:, j, None, None, None], seg)
+    mask_probs = torch.sigmoid(resize_nhwc(ml.reshape(b * q * v, *MASK_SIZE, 1), (th, tw), align_corners=False))
+    return {
+        "segmentation": seg,  # [B, V, H, W], -1 background
+        "labels": labels,  # [B, K]
+        "queries": queries,
+        "scores": pred_scores,
+        "valid": keep,
+        "class_probs": class_probs,  # [B, Q, C+1] (confidence factor 1)
+        "mask_probs": mask_probs.reshape(b, q, v, th, tw),  # (confidence factor 2)
+    }
+
+
+def segments_info(result: Dict[str, torch.Tensor], fuse_ids: Sequence[int]) -> List[List[dict]]:
+    """The reference's ``segments_info`` list for each batch item, on the host:
+    one {"id", "label_id", "was_fused", "score"} per query that got a segment,
+    in query order, from ``panoptic_segmentation``'s ``exists``, ``seg_ids``,
+    ``pred_labels`` and ``pred_scores``."""
+    exists, seg_ids, labels, scores = (result[k].cpu().numpy()
+                                       for k in ("exists", "seg_ids", "pred_labels", "pred_scores"))
+    fuse = {int(x) for x in fuse_ids}
+    out = []
+    for bi in range(exists.shape[0]):
+        infos = []
+        for k in range(exists.shape[1]):
+            if not exists[bi, k]:
+                continue
+            lbl = int(labels[bi, k])
+            infos.append({"id": int(seg_ids[bi, k]), "label_id": lbl, "was_fused": lbl in fuse,
+                          "score": round(float(scores[bi, k]), 6)})
+        out.append(infos)
+    return out

@@ -11,7 +11,10 @@ Gradients run backward through the port's kernels: the compositing's
 backward is the ``raster_bwd`` kernel on CUDA; the attention and deformable
 attention kernels' backward is the plain version's VJP (the JAX package's
 backward there is XLA code, not a TPU kernel); the rest is autograd.
-Gradient accumulation and data parallelism wait for the distributed slice.
+With ``trainer.accumulate_grad_batches = k > 1`` the optimizer is
+``MultiSteps`` (optax.MultiSteps' semantics): a step is k micro-steps whose
+gradients are averaged, the parameters moving on the k-th. Data parallelism
+waits for the distributed slice.
 A batch with ``text_token`` (ScanRefer) trains the refer path instead
 (``refer_loss_fn``): the understanding-only forward, one final-layer
 Hungarian match and the word-match cross-entropy.
@@ -42,7 +45,11 @@ from siu3r_tpu_torch.train.losses import (
     segmentation_loss,
 )
 from siu3r_tpu_torch.train.matcher import hungarian_match_batch
-from siu3r_tpu_torch.train.optimizer import AdamW3
+from siu3r_tpu_torch.train.optimizer import AdamW3, MultiSteps
+
+# the batch keys ``Pipeline.eval_step`` reads
+EVAL_KEYS = ("context_views_images", "context_views_intrinsics", "target_views_extrinsics",
+             "target_views_intrinsics")
 
 
 class Pipeline:
@@ -53,22 +60,24 @@ class Pipeline:
         self.cfg = cfg
         self.model = SIU3RModel(cfg.pipeline.model, device=device, seed=seed).eval()
         self.device = next(self.model.parameters()).device
-        self.optimizer: Optional[AdamW3] = None
+        self.optimizer: Optional[AdamW3 | MultiSteps] = None
         self.lpips_params = None
 
     def init_train(
         self, steps_per_epoch: int = 1000, lpips_weights: Optional[str] = None, lpips_enabled: bool = True,
     ) -> "Pipeline":
-        """Set up training: the optimizer (fresh moments, step 0) and LPIPS
+        """Set up training: the optimizer (fresh moments, step 0; wrapped in
+        ``MultiSteps`` when ``trainer.accumulate_grad_batches`` > 1) and LPIPS
         (``lpips_weights`` if that file exists, else the fixed-seed VGG)."""
-        if self.cfg.trainer.accumulate_grad_batches > 1:
-            raise NotImplementedError("gradient accumulation is not ported yet")
         self.lpips_params = (lpips_mod.init_lpips_params(lpips_weights, device=self.device)
                              if lpips_enabled else None)
         self.optimizer = AdamW3(
             self.model, self.cfg.optimizer, self.cfg.trainer, steps_per_epoch=steps_per_epoch,
             freeze_encoder=self.cfg.pipeline.model.croco.freeze == "encoder",
         )
+        k = self.cfg.trainer.accumulate_grad_batches
+        if k > 1:
+            self.optimizer = MultiSteps(self.optimizer, k)
         return self
 
     def loss_fn(
@@ -171,10 +180,11 @@ class Pipeline:
         return losses["total"], losses
 
     def train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """One optimizer step on ``batch``: ``refer_loss_fn`` where it holds
-        ``text_token``, else ``loss_fn``. Returns every loss term, detached,
-        on the device. Parameters the loss does not reach (a refer step's
-        heads) take a zero gradient: AdamW still decays them."""
+        """One optimizer step on ``batch`` (one micro-step under gradient
+        accumulation): ``refer_loss_fn`` where it holds ``text_token``, else
+        ``loss_fn``. Returns every loss term, detached, on the device.
+        Parameters the loss does not reach (a refer step's heads) take a zero
+        gradient: AdamW still decays them."""
         if self.optimizer is None:
             raise RuntimeError("call init_train first")
         for p in self.model.parameters():

@@ -23,7 +23,7 @@ The updates run as multi-tensor (``torch._foreach_*``) operations per group.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -76,6 +76,11 @@ def make_lr_schedule(base_lr: float, warm_up_epochs: int, max_epochs: int, steps
     return schedule
 
 
+def _grads_of(params: Dict[str, nn.Parameter]) -> Dict[str, torch.Tensor]:
+    """Each parameter's ``.grad``, a missing one as zeros."""
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)) for n, p in params.items()}
+
+
 class AdamW3:
     """The three AdamW groups over a model's parameters, with the global-norm
     clip over all of them. ``step()`` reads ``p.grad`` of every parameter (a
@@ -111,10 +116,12 @@ class AdamW3:
         return self.schedules[group](step)
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """One update. Returns the global gradient norm (before the clip), on
-        the device."""
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)) for n, p in self.params.items()}
+    def step(self, grads: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """One update from ``grads`` (by parameter name), or from each
+        parameter's ``.grad`` when none are given. Returns the global gradient
+        norm (before the clip), on the device."""
+        if grads is None:
+            grads = _grads_of(self.params)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
         if self.clip and self.clip > 0:
             # optax.clip_by_global_norm: g if norm < clip else g / norm * clip,
@@ -165,6 +172,7 @@ class AdamW3:
         }
 
     def load_state_dict(self, state: dict) -> None:
+        _check_accumulation(state, 1)
         if state["groups"] != self.groups:
             raise ValueError("optimizer-state structure mismatch: the checkpoint was saved with other "
                              "parameter groups (freeze, model config)")
@@ -174,3 +182,76 @@ class AdamW3:
                     raise ValueError(f"optimizer state {key}[{n}] {tuple(t.shape)} does not fit the parameter")
                 getattr(self, key)[n].copy_(t)
         self.count = int(state["count"])
+
+
+class MultiSteps:
+    """Gradient accumulation over ``k`` micro-steps around an ``AdamW3``, as
+    ``optax.MultiSteps`` (the JAX package's ``accumulate_grad_batches``):
+    each ``step()`` folds the parameters' ``.grad`` into a running mean,
+    ``acc + (g - acc) / (n + 1)``, kept in its own buffers (every parameter's,
+    the frozen encoder's included: the clip counts them). Micro-steps 1 to
+    k - 1 change no parameter and leave the optimizer's count alone; the k-th
+    runs ``AdamW3.step`` on the mean (clip, moments, decay, the schedule at
+    the optimizer's count) and zeroes the mean."""
+
+    def __init__(self, inner: AdamW3, k: int):
+        if k < 2:
+            raise ValueError(f"MultiSteps accumulates k >= 2 micro-steps, not {k}")
+        self.inner = inner
+        self.k = k
+        self.mini_step = 0
+        self.acc = {n: torch.zeros_like(p) for n, p in inner.params.items()}
+
+    @property
+    def count(self) -> int:
+        """Optimizer steps taken (micro-steps do not count)."""
+        return self.inner.count
+
+    def lr(self, group: str, step: int) -> float:
+        return self.inner.lr(group, step)
+
+    @torch.no_grad()
+    def step(self) -> Optional[torch.Tensor]:
+        """One micro-step. Returns the global gradient norm of the mean on the
+        k-th micro-step, None on the others."""
+        # in place, with no temporary of the parameters' size: lerp towards
+        # g with weight 1 / (n + 1); a missing gradient counts as zero, a
+        # lerp towards which is a scaling
+        w = 1.0 / (self.mini_step + 1)
+        with_grad = [n for n, p in self.inner.params.items() if p.grad is not None]
+        without = [self.acc[n] for n, p in self.inner.params.items() if p.grad is None]
+        if with_grad:
+            torch._foreach_lerp_([self.acc[n] for n in with_grad],
+                                 [self.inner.params[n].grad for n in with_grad], w)
+        if without:
+            torch._foreach_mul_(without, 1.0 - w)
+        if self.mini_step < self.k - 1:
+            self.mini_step += 1
+            return None
+        norm = self.inner.step(self.acc)
+        torch._foreach_zero_(list(self.acc.values()))
+        self.mini_step = 0
+        return norm
+
+    def state_dict(self) -> dict:
+        """The inner optimizer's state, k, the micro-step count and, in the
+        middle of an accumulation only, the running mean (zero otherwise)."""
+        return {"inner": self.inner.state_dict(), "accumulate_grad_batches": self.k, "mini_step": self.mini_step,
+                "acc": self.acc if self.mini_step else None}
+
+    def load_state_dict(self, state: dict) -> None:
+        _check_accumulation(state, self.k)
+        self.inner.load_state_dict(state["inner"])
+        for n, a in self.acc.items():
+            if state["acc"] is None:
+                a.zero_()
+            else:
+                a.copy_(state["acc"][n])
+        self.mini_step = int(state["mini_step"])
+
+
+def _check_accumulation(state: dict, k: int) -> None:
+    saved = state.get("accumulate_grad_batches", 1)
+    if saved != k:
+        raise ValueError(f"optimizer-state structure mismatch: the checkpoint accumulates {saved} micro-steps "
+                         f"a step, this run {k} (trainer.accumulate_grad_batches)")

@@ -16,7 +16,8 @@ from siu3r_tpu_torch.kernels.binning import bin_gaussians
 from siu3r_tpu_torch.kernels.msda import msda
 from siu3r_tpu_torch.kernels.raster import raster, raster_backward
 from siu3r_tpu_torch.render.projection import ProjectedGaussians
-from siu3r_tpu_torch.cli import inference, validate_refer
+from siu3r_tpu_torch.cli import evaluate, inference, train, validate, validate_refer
+from siu3r_tpu_torch.eval.evaluator import Evaluator
 from siu3r_tpu_torch.models.model import SIU3RModel, build_model
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -31,7 +32,9 @@ def test_package_imports_no_jax():
     for m in ("render.projection", "render.rasterizer", "renderer", "pipeline", "cli.viewer",
               "kernels.binning", "kernels.raster", "ops.sh", "ops.lap", "train.losses", "train.matcher",
               "train.lpips", "train.optimizer", "checkpoint_io", "data", "data.datasets", "data.loader",
-              "data.native_io", "data.seg_labels", "eval.metrics", "cli.train", "cli.validate_refer"):
+              "data.native_io", "data.seg_labels", "eval.metrics", "cli.train", "cli.validate_refer",
+              "utils.logging", "utils.profiling", "utils.visualize", "visualizer", "eval.evaluator",
+              "cli.validate", "cli.evaluate"):
         assert "siu3r_tpu_torch." + m in modules
     code = (
         "import importlib, sys\n"
@@ -76,6 +79,13 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
         inference.main(["--image_path1", "a.png", "--image_path2", "b.png"])
     with pytest.raises(RuntimeError, match="CUDA"):
         validate_refer.main(["--config", "configs/scanrefer.yaml", "datamodule.dataset_cfg.root=/nonexistent"])
+    for cli in (validate, train):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--config", "configs/scannet.yaml", "datamodule.dataset_cfg.root=/nonexistent"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--eval_path", "/nonexistent"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Evaluator(bind_scannet_classes(RootCfg()).pipeline.evaluator)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -107,3 +117,39 @@ def test_kernel_wrappers_refuse_other_devices():
         raster_backward(table, table[..., 0], torch.empty((1, 8, 8), device="meta"),
                         torch.empty((8, 3), device="meta"), (16, 128), image[..., None].expand(-1, -1, -1, 3),
                         image, image)
+
+
+def test_labeled_overlays_need_no_opencv():
+    """The Visualizer's labeled overlays draw with numpy and PIL: they run
+    with ``cv2`` unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['cv2'] = None\n"
+        "import numpy as np\n"
+        "from siu3r_tpu_torch.utils.visualize import labeled_gt_overlay, labeled_instance_overlay\n"
+        "seg = np.zeros((1, 32, 32), int); seg[0, 4:20, 6:30] = 1\n"
+        "img = np.random.RandomState(0).rand(1, 32, 32, 3)\n"
+        "a = labeled_instance_overlay(img, seg, [{'id': 1, 'label_id': 4, 'score': 0.9}])\n"
+        "b = labeled_gt_overlay(img, (seg == 1)[None].astype(float), np.array([4]))\n"
+        "assert a.shape == b.shape == (32, 32, 3)\n"
+        "assert (a != (img[0] * 255).astype(np.uint8)).any()\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_step_timer_and_metrics_history(tmp_path):
+    from siu3r_tpu_torch.utils.logging import MetricsHistory, RankedLogger
+    from siu3r_tpu_torch.utils.profiling import StepTimer, sync
+
+    timer = StepTimer()
+    out = timer.timed("ones", torch.ones, 4)
+    with timer.section("add", result=out):
+        out = out + 1
+    sync({"x": [out]})  # nothing to wait for on the CPU
+    assert set(timer.summary()) == {"add", "ones"} and "ones:" in timer.report()
+    history = MetricsHistory(tmp_path)
+    history.log(3, loss=torch.tensor(0.5), note="text")
+    RankedLogger("siu3r_tpu_torch.test").info("logged")
+    lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == 1 and '"loss": 0.5' in lines[0] and '"note": "text"' in lines[0]
