@@ -117,14 +117,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      covered and swept, with their host syncs and peak memory, the binning,
      raster and raster_bwd kernels held against their plain versions on a
      timed micro-step's inputs, and the training state's size, save and
-     restore seconds.
-Every phase logs the SM clock (``nvidia-smi`` clocks.sm, clocks.max.sm) at
-its start and end.
+     restore seconds;
+ 23. dp_validate (after evaluate): ``cli/validate`` under ``torchrun
+     --nproc_per_node 2 --dist_backend gloo`` (two ranks share the card;
+     NCCL refuses that) with phase 20's weights and root: the one-rank
+     sweep's files, written once, its results within phase 20's limits,
+     each rank's launches;
+ 24. dp_train (after train_cli): two ranks over gloo, configs/scannet.yaml
+     at full width, a global batch of 2, two data-parallel steps with
+     injected sample points, held against a one-process oracle on the card;
+     each rank's launches, step ms, peak memory, all-reduce bytes and ms;
+ 25. zero1_train: two ranks, configs/scannet_multi.yaml at full width (8 +
+     10 views), ZeRO-1 against the replicated update on the same gradients
+     (1e-6); each rank's optimizer-state bytes and peak memory, both ways;
+ 26. dp_train_cli: ``cli/train`` under two ranks with ZeRO-1 and k = 2, a
+     checkpoint mid-accumulation, its resume under two ranks against the
+     uninterrupted run, and the same checkpoint resumed in one process;
+ 27. nccl: phase 24's steps on one rank over NCCL (and on two cards over
+     NCCL where the machine has them, printed).
+The data-parallel phases start this script once a rank (``--rank_worker``)
+under ``python -m torch.distributed.run --standalone``, and fail unless
+every rank exits 0 and writes its result. Every phase logs the SM clock
+(``nvidia-smi`` clocks.sm, clocks.max.sm) at its start and end, and its
+seconds.
 It then prints the kernels' JSON line (each kernel with the two-view path's
 launches and times and, under "multi_view" and "refer", the 8-view path's
 and the refer forward's; under "validate" the launches of one sweep batch,
 under "train_cli" those of one micro-step and the render kernels' times on
-its inputs) and, last, the device line.
+its inputs; under "dp_train", "zero1_train" and "dp_validate" each rank's
+launches, of one step and of the whole sweep; under "nccl" one step's)
+and, last, the device line.
 ``--phases`` runs the named phases only (after 1 and 2) and prints neither.
 Imports nothing of JAX or of the JAX package.
 """
@@ -135,7 +157,9 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -193,7 +217,7 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int, parts: dict | None = None) -> tuple[float, float, dict | None]:
+def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False) -> tuple[float, float, dict | None]:
     """(device ms, elapsed ms, part ms) per call over ``iters`` back-to-back
     calls.
 
@@ -202,7 +226,16 @@ def time_ms(fn, iters: int, parts: dict | None = None) -> tuple[float, float, di
     name of ``parts`` to the share of the device entries whose name contains
     one of its substrings (None without ``parts``); elapsed ms comes from
     CUDA events around the loop and includes the gaps where the card waits
-    for the host to launch (for a small kernel, the wrapper's cost)."""
+    for the host to launch (for a small kernel, the wrapper's cost).
+
+    A short trace can come back empty, and one of many launches cut short
+    (CUPTI delivers its records late, or drops them): an empty trace is
+    taken again, at most five times. With ``whole`` (a kernel's own time,
+    a few launches a call) a trace counts only if every device entry ran a
+    multiple of ``iters`` times (each call launches the same kernels), or
+    if its entries' counts equal the previous trace's (launches that vary
+    from call to call). A plain version's trace of thousands of launches is
+    taken as it comes: its time may be short of the truth."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -215,21 +248,24 @@ def time_ms(fn, iters: int, parts: dict | None = None) -> tuple[float, float, di
     end.record()
     end.synchronize()
     elapsed = start.elapsed_time(end) / iters
-    # a short trace can come back empty (CUPTI delivers its records late):
-    # profile again, at most three times, before giving up
-    for _ in range(3):
+    previous = None
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = prof.key_averages()
+        rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         device_us = sum(e.self_device_time_total for e in rows)
-        if device_us > 0:
+        counts = sorted((e.key, e.count) for e in rows)
+        complete = all(e.count % iters == 0 for e in rows) or counts == previous
+        previous = counts
+        if device_us > 0 and (complete or not whole):
             part_ms = None if parts is None else {
                 name: sum(e.self_device_time_total for e in rows if any(x in e.key for x in subs)) / 1e3 / iters
                 for name, subs in parts.items()}
             return device_us / 1e3 / iters, elapsed, part_ms
-    raise RuntimeError("the profiler recorded no device time")
+    raise RuntimeError(f"the profiler recorded no whole trace of {iters} calls: "
+                       f"{[(e.key[:60], e.count) for e in rows if e.count % iters]} (of {len(rows)} entries)")
 
 
 def larger(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
@@ -355,13 +391,13 @@ def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None
     err = (out - ref).abs().max().item()
     if not math.isfinite(err) or err > ATTN_ATOL:
         raise AssertionError(f"attention {name} {case}: max_abs_err {err} > {ATTN_ATOL}")
-    ms, elapsed, _ = time_ms(kern, iters)
+    ms, elapsed, _ = time_ms(kern, iters, whole=True)
     plain_ms = time_ms(plain, max(3, iters // 4))[0]
     lib_ms = None
     if kv_mask is None:
         qr = rope2d_from_cos_sin(q, *qrope) if qrope is not None else q
         kr = rope2d_from_cos_sin(k, *krope) if krope is not None else k
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters)[0]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters, whole=True)[0]
     bnd = _attn_bound(case)
     blocks, threads, smem = launch_config(*case[:3], case[4], case[5])
     log("kernel", f"{name} {case[:5]} rope={case[5]} mask={case[6]}: max_abs_err {err:.3g} "
@@ -428,7 +464,7 @@ def check_msda(name, case, iters, gen, inputs=None):
     err = (out - ref).abs().max().item()
     if not math.isfinite(err) or err > MSDA_ATOL:
         raise AssertionError(f"msda {name}: max_abs_err {err} > {MSDA_ATOL}")
-    ms, elapsed, _ = time_ms(kern, iters)
+    ms, elapsed, _ = time_ms(kern, iters, whole=True)
     plain_ms = time_ms(plain, max(3, iters // 4))[0]
     nbytes, flops = _msda_cost(case, loc)
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
@@ -630,7 +666,7 @@ def check_bin(name, proj, k, iters) -> dict:
         nbytes, ops = _bin_cost(proj, *got)
         # the wrapper's device time: the depth sort (torch), then the three
         # kernels of csrc/binning.cu, each on its own
-        res["ms"], res["elapsed"], parts = time_ms(kern, iters, parts=BIN_PARTS)
+        res["ms"], res["elapsed"], parts = time_ms(kern, iters, parts=BIN_PARTS, whole=True)
         res["kernel_ms"] = sum(parts[p] for p in BIN_KERNELS)
         res.update({f"{p}_ms": ms for p, ms in parts.items()})
         if not all(parts[p] > 0 for p in BIN_KERNELS):
@@ -792,7 +828,7 @@ def check_raster(name, table, counts, params, colors, iters) -> dict:
         work = _pair_work(table, counts, params, s)
         nbytes, ops = _raster_cost(table, counts, colors, s, work)
         res["spread"] = _tile_spread(work, counts)
-        res["ms"], res["elapsed"], _ = time_ms(kern, iters)
+        res["ms"], res["elapsed"], _ = time_ms(kern, iters, whole=True)
         res["plain_ms"] = time_ms(plain, max(3, iters // 4))[0]
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
     log("kernel", f"raster {name} views={table.shape[0]} K={table.shape[-1]} C={colors.shape[-1]}: max_abs_err "
@@ -996,7 +1032,7 @@ def check_raster_bwd(name, table, counts, params, colors, iters, gen) -> dict:
         work = _pair_work(table, counts, params, swept)
         nbytes, ops = _raster_bwd_cost(table, counts, params, colors, swept, work)
         res["spread"] = _tile_spread(work, counts)
-        res["ms"], res["elapsed"], _ = time_ms(kern, iters)
+        res["ms"], res["elapsed"], _ = time_ms(kern, iters, whole=True)
         res["plain_ms"] = time_ms(plain, max(2, iters // 10))[0]
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
     log("kernel", f"raster_bwd {name} views={n} K={k} C={c}: max_abs_err, atol and worst excess per part "
@@ -2839,7 +2875,7 @@ def phase_validate() -> dict:
                           "--output_path", str(out_dir), f"datamodule.dataset_cfg.root={root}"],
                          cwd=here, capture_output=True, text=True, timeout=600)
     cli_s = time.perf_counter() - t0
-    weights.unlink()
+    _SWEEP["weights"] = weights  # for phase dp_validate
     if cli.returncode != 0:
         raise RuntimeError(f"validate exited {cli.returncode}:\n{cli.stdout[-3000:]}\n{cli.stderr[-4000:]}")
     got = json.loads((out_dir / "results.json").read_text())
@@ -3209,9 +3245,615 @@ def phase_train_cli() -> dict:
         log("train_cli", f"  op {ms:8.3f} ms  {name} {shapes}"[:220])
     del pipe, params, batches
     torch.cuda.empty_cache()
-    _SWEEP["tmp"].cleanup()
-    _SWEEP.clear()
     return res
+
+
+# ---------------------------------------------------------------- phases 23-27: data parallelism
+
+DP_RANKS = 2  # ranks on the one card, over gloo: NCCL refuses two ranks on one GPU
+DP_STEPS = 2
+# the ranks against the one-process oracle (and a resumed run against the
+# uninterrupted one): the kernels' atomics and the plain VJPs' index_add sum
+# in an order that varies from run to run, so gradients differ in their last
+# bits, and Adam's first steps (m / sqrt(v), about the gradient's sign) carry
+# that into entries whose gradient is near zero (a tensor whose gradient is
+# rounding noise alone, as a bias before a normalisation, moves by +-lr at
+# random). The first step's loss terms within DP_LOSS_RTOL (the same weights
+# on the same inputs), a later step's within DP_LATER_LOSS_RTOL (its weights
+# carry the earlier update's difference); BatchNorm running statistics rtol
+# and atol; the
+# parameters' update (after - before) over all tensors together within
+# DP_UPDATE_REL_L2 of the oracle's in relative L2; Adam's first moment after
+# the first step (the clipped averaged gradient times 1 - b1) within
+# DP_MOMENT_REL_L2 for each tensor whose gradient exceeds 1e-6 of the norm
+# (the gradient tolerance of tests/test_torch_train_step.py)
+DP_LOSS_RTOL = 1e-4
+DP_LATER_LOSS_RTOL = 2e-2
+DP_STATS_RTOL, DP_STATS_ATOL = 1e-4, 1e-6
+DP_UPDATE_REL_L2 = 5e-2
+DP_MOMENT_REL_L2 = 2e-3
+# ZeRO-1 against the replicated update on the same gradients
+# (tests/test_train.py's tolerance)
+ZERO1_ATOL = 1e-6
+_DP: dict = {}  # phase dp_train's inputs, for phase nccl
+
+
+def _torchrun(phase: str, nproc: int, args: list, timeout: float) -> tuple[float, str]:
+    """``python -m torch.distributed.run --standalone --nproc_per_node nproc
+    args`` from the checkout, in a session of its own: (seconds, its output).
+    Raises unless it exits 0 (torchrun exits non-zero when any rank does);
+    on the timeout, kills the launcher and every rank."""
+    here = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise RuntimeError(f"{phase}: torchrun did not end in {timeout} s:\n{out[-6000:]}")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{phase}: torchrun exited {proc.returncode}:\n{out[-8000:]}")
+    return seconds, out
+
+
+def _ranks(phase: str, worker: str, nproc: int, wdir: Path, backend: str, timeout: float = 600) -> tuple:
+    """This script's ``worker`` under torchrun on ``nproc`` ranks: (seconds,
+    output, each rank's JSON result). Fails unless every rank wrote one."""
+    seconds, out = _torchrun(phase, nproc, [str(Path(__file__).resolve()), "--rank_worker", worker, "--worker_dir",
+                                            str(wdir), "--dist_backend", backend], timeout)
+    results = []
+    for r in range(nproc):
+        path = wdir / f"rank{r}.json"
+        if not path.exists():
+            raise AssertionError(f"{phase}: rank {r} of {nproc} wrote no result:\n{out[-4000:]}")
+        results.append(json.loads(path.read_text()))
+        path.unlink()
+    return seconds, out, results
+
+
+def _bn_buffers(model) -> list:
+    return [t for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+            for t in (m.running_mean, m.running_var)]
+
+
+def _checksum(model) -> float:
+    return float(sum(p.detach().double().sum() for p in model.parameters()))
+
+
+def _framed_items(pipe, views: int, n_target: int, items: int, seed: int) -> dict:
+    """A global batch of ``items`` train items (``_train_batch``'s, 48
+    objects), each item's target cameras framing the Gaussians of a
+    train-mode forward of ``pipe``'s weights on its images; the BatchNorm
+    running statistics are put back after that forward. On the card."""
+    images, intr = _view_inputs(views, seed=seed, batch=items)
+    saved = [t.clone() for t in _bn_buffers(pipe.model)]
+    with torch.no_grad():
+        means = pipe.model.train()(images, intr).gaussians.means
+    for t, s in zip(_bn_buffers(pipe.model), saved):
+        t.copy_(s)
+    targets = [_target_views(means[i:i + 1], n_target, views) for i in range(items)]
+    batch = _train_batch(images, intr, (torch.cat([t[0] for t in targets]), torch.cat([t[1] for t in targets])),
+                         N_OBJECTS, N_VALID, pipe.cfg.pipeline.model.mask2former.num_labels, seed=seed + 1)
+    for key in ("context_views_id", "target_views_id"):
+        batch[key] = batch[key].expand(items, -1).contiguous()
+    return batch
+
+
+def _dp_step_record(pipe, batch, injected, device) -> dict:
+    """One ``Pipeline.train_step`` on this rank's slice with injected sample
+    points: its wall ms between two synchronisations, peak memory, kernel
+    launches (set to 0 just before it), the collectives' bytes and ms, and
+    the averaged loss terms."""
+    from siu3r_tpu_torch import parallel
+    from siu3r_tpu_torch.kernels import _build
+
+    inj = [{k: v.to(device) for k, v in parallel.shard_batch(d).items()} for d in injected]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    parallel.stats.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = pipe.train_step(batch, None, injected_coords=inj)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=dict(_build.launch_counts),
+                variants=dict(_build.variant_counts), losses={k: float(v) for k, v in losses.items()},
+                **{f"{name}_{what}": value for name in ("all_reduce", "all_gather")
+                   for what, value in (("bytes", parallel.stats.bytes[name]),
+                                       ("ms", parallel.stats.seconds[name] * 1e3),
+                                       ("calls", parallel.stats.calls[name]))})
+
+
+def worker_dp_train(wdir: Path, backend: str) -> None:
+    """One rank of phases dp_train and nccl: configs/scannet.yaml's model
+    (seed 0) on its slice of ``inputs.pt``'s global batch, one
+    ``Pipeline.train_step`` for each step's injected points, each recorded
+    by ``_dp_step_record``; rank 0 saves the parameters and BatchNorm
+    statistics after the steps where ``inputs.pt`` asks for them."""
+    from siu3r_tpu_torch import parallel
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    device = parallel.init_distributed(backend, "cuda")
+    rank = parallel.rank()
+    parallel.stats.timed = True
+    inp = torch.load(wdir / "inputs.pt", weights_only=False)
+    pipe = Pipeline(two_view_cfg(), device=device, seed=0).init_train(steps_per_epoch=1000)
+    initial = _checksum(pipe.model)
+    batch = {k: v.to(device) for k, v in parallel.shard_batch(inp["batch"]).items()}
+    steps = []
+    for injected in inp["injected"]:
+        steps.append(_dp_step_record(pipe, batch, injected, device))
+        if len(steps) == 1 and rank == 0 and inp["save_state"]:
+            first_mu = {n: t.to("cpu", copy=True) for n, t in pipe.optimizer.mu.items()}
+    if rank == 0 and inp["save_state"]:
+        torch.save({"params": {n: p.detach().cpu() for n, p in pipe.model.named_parameters()}, "mu": first_mu,
+                    "stats": [t.cpu() for t in _bn_buffers(pipe.model)]}, wdir / "state.pt")
+    (wdir / f"rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, world=parallel.world_size(), backend=backend, device=str(device), items=len(batch["gt_valid"]),
+        initial_checksum=initial, checksum=_checksum(pipe.model), steps=steps)))
+    parallel.barrier()
+    parallel.shutdown()
+
+
+def _oracle(pipe, batch: dict, injected: list, ranks: int) -> tuple[list, set, dict]:
+    """The one-process data-parallel step, on the card: for each step's
+    injected points, each rank's slice's loss and backward from the step's
+    starting BatchNorm statistics (the gradients summing), then the mean of
+    the gradients and of the slices' statistics, and one ``AdamW3`` step.
+    Returns each step's mean loss terms, the parameters whose averaged
+    gradient's norm exceeded 1e-6 of the global norm at every step (the
+    others' gradients are rounding noise, a bias before a normalisation,
+    whose Adam update has a random sign), and Adam's first moment after the
+    first step, on the host."""
+    from siu3r_tpu_torch import parallel
+
+    named = dict(pipe.model.named_parameters())
+    params = list(named.values())
+    stats = _bn_buffers(pipe.model)
+    out, significant = [], set(named)
+    for step in injected:
+        start = [t.clone() for t in stats]
+        shard_stats, shard_losses = [], []
+        for p in params:
+            p.grad = None
+        for r in range(ranks):
+            cut = parallel.shard_slice(len(batch["gt_valid"]), ranks, r)
+            for t, s in zip(stats, start):
+                t.copy_(s)
+            loss, losses = pipe.loss_fn({k: v[cut] for k, v in batch.items()}, None,
+                                        [{k: v[cut].cuda() for k, v in d.items()} for d in step])
+            loss.backward()
+            shard_losses.append({k: float(v) for k, v in losses.items()})
+            shard_stats.append([t.clone() for t in stats])
+        with torch.no_grad():
+            for p in params:
+                p.grad = torch.zeros_like(p) if p.grad is None else p.grad.div_(ranks)
+            for i, t in enumerate(stats):
+                t.copy_(sum(s[i] for s in shard_stats) / ranks)
+            norms = {n: torch.linalg.vector_norm(p.grad).item() for n, p in named.items()}
+        total = math.sqrt(sum(x * x for x in norms.values()))
+        significant &= {n for n, x in norms.items() if x > 1e-6 * total}
+        pipe.optimizer.step()
+        for p in params:
+            p.grad = None
+        out.append({k: sum(x[k] for x in shard_losses) / ranks for k in shard_losses[0]})
+        if len(out) == 1:
+            first_mu = {n: t.to("cpu", copy=True) for n, t in pipe.optimizer.mu.items()}
+    return out, significant, first_mu
+
+
+def _update_rel_l2(before: dict, got: dict, want: dict, names=None) -> tuple[float, float, str]:
+    """got's update (after - before) against want's, in relative L2: over
+    all the tensors together, and the largest over the tensors ``names``
+    (all by default), with its name; a tensor that want leaves in place must
+    be left in place by got (else infinity)."""
+    worst, where, diff2, ref2 = 0.0, "", 0.0, 0.0
+    for n, b in before.items():
+        if not b.is_floating_point():
+            continue
+        g, w, b = got[n].cuda(), want[n].cuda(), b.cuda()
+        ref = torch.linalg.vector_norm((w - b).double()).item()
+        diff = torch.linalg.vector_norm((g - w).double()).item()
+        diff2, ref2 = diff2 + diff * diff, ref2 + ref * ref
+        rel = diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
+        if (names is None or n in names) and rel > worst:
+            worst, where = rel, n
+    return math.sqrt(diff2 / ref2) if ref2 > 0 else math.inf, worst, where
+
+
+def _dp_inputs(n_items: int = DP_RANKS):
+    """The seed-0 two-view pipeline, a framed global batch of ``n_items`` (on
+    the card) and DP_STEPS steps of injected sample points (on the host)."""
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    pipe = Pipeline(two_view_cfg(), device="cuda", seed=0).init_train(steps_per_epoch=1000)
+    mcfg = pipe.cfg.pipeline.model
+    batch = _framed_items(pipe, mcfg.num_views, TRAIN_TARGETS, n_items, seed=21)
+    injected = [_injected_coords(mcfg, n_items, N_OBJECTS, mcfg.num_views, "cpu", seed=30 + s) for s in range(DP_STEPS)]
+    return pipe, batch, injected
+
+
+def _rank_text(r: dict) -> str:
+    return "; ".join(
+        f"step {i + 1}: {s['ms']:.1f} ms, peak {s['peak_gib']:.3f} GiB, all_reduce {s['all_reduce_bytes'] / 2**30:.3f} GiB "
+        f"in {s['all_reduce_calls']} calls {s['all_reduce_ms']:.1f} ms, launches {s['launches']}"
+        for i, s in enumerate(r["steps"]))
+
+
+def phase_dp_train() -> dict:
+    """Two ranks on the one card over gloo (``torchrun --standalone
+    --nproc_per_node 2``): configs/scannet.yaml's model at full width, a
+    global batch of 2 (one item a rank; the config's 3 does not divide by 2),
+    2 + 4 views framed as phase train frames them, 48 objects, two data-
+    parallel ``Pipeline.train_step``s with injected sample points. Held
+    against a one-process oracle on the card (``_oracle``: each rank's slice
+    with its points, the gradients and statistics averaged, one ``AdamW3``
+    step each): the averaged loss terms within DP_LOSS_RTOL at the first
+    step and DP_LATER_LOSS_RTOL at the second, the BatchNorm
+    running statistics within DP_STATS_RTOL / DP_STATS_ATOL, each
+    parameter's update within DP_UPDATE_REL_L2; both ranks start from the
+    oracle's weights and end with the same ones. Each rank's launches of
+    kernels 1-6 per step (phase train's), step ms, peak memory and the
+    all-reduce's bytes and ms (gloo stages CUDA tensors through the host)."""
+    pipe, batch, injected = _dp_inputs()
+    before = {n: p.detach().to("cpu", copy=True) for n, p in pipe.model.named_parameters()}
+    initial = _checksum(pipe.model)
+    oracle_losses, significant, oracle_mu = _oracle(pipe, batch, injected, DP_RANKS)
+    oracle = {n: p.detach().to("cpu", copy=True) for n, p in pipe.model.named_parameters()}
+    oracle_stats = [t.to("cpu", copy=True) for t in _bn_buffers(pipe.model)]
+    expected = {**expected_launches(pipe.cfg.pipeline.model), "bin": 1, "raster": 1, "raster_bwd": 1}
+    del pipe
+    torch.cuda.empty_cache()
+    wdir = Path(tempfile.mkdtemp(prefix="dp_train_"))
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    torch.save({"batch": cpu_batch, "injected": injected, "save_state": True}, wdir / "inputs.pt")
+    _DP.update(batch=cpu_batch, injected=injected)
+    seconds, _, ranks = _ranks("dp_train", "dp_train", DP_RANKS, wdir, "gloo")
+    state = torch.load(wdir / "state.pt", weights_only=False)
+    shutil.rmtree(wdir)
+    if any(r["initial_checksum"] != initial for r in ranks) or len({r["checksum"] for r in ranks}) != 1:
+        raise AssertionError(f"dp_train: the ranks did not start from the oracle's weights ({initial}) or did not "
+                             f"end alike: {[(r['initial_checksum'], r['checksum']) for r in ranks]}")
+    for r in ranks:
+        for s in r["steps"]:
+            if s["launches"] != expected or s["variants"] != {"msda.staged": expected["msda"]}:
+                raise AssertionError(f"dp_train: rank {r['rank']} launches {s['launches']} {s['variants']} != "
+                                     f"expected {expected}")
+    # per step, the worst relative difference of a loss term and its term
+    loss_rel = [max((abs(s["losses"][k] - want[k]) / max(abs(want[k]), 1e-30), k) for r in ranks for k in want)
+                for s, want in zip(ranks[0]["steps"], oracle_losses)]
+    loss_excess = max(rel - (DP_LOSS_RTOL if i == 0 else DP_LATER_LOSS_RTOL) for i, (rel, _) in enumerate(loss_rel))
+    stats_err = max(((g - w).abs() - DP_STATS_RTOL * w.abs()).max().item()
+                    for g, w in zip(state["stats"], oracle_stats))
+    update_all, update_rel, where = _update_rel_l2(before, state["params"], oracle, significant)
+    zero = {n: torch.zeros_like(t) for n, t in oracle_mu.items()}
+    _, mu_rel, mu_where = _update_rel_l2(zero, state["mu"], oracle_mu, significant)
+    if (loss_excess > 0 or stats_err > DP_STATS_ATOL or update_all > DP_UPDATE_REL_L2
+            or mu_rel > DP_MOMENT_REL_L2):
+        raise AssertionError(f"dp_train: against the oracle, loss terms worst rel per step {loss_rel} (rtol "
+                             f"{DP_LOSS_RTOL}, then {DP_LATER_LOSS_RTOL}), "
+                             f"statistics excess {stats_err:.3g} (atol {DP_STATS_ATOL}), update rel L2 {update_all:.3g} "
+                             f"over all (limit {DP_UPDATE_REL_L2}), step 1's first moment worst rel L2 {mu_rel:.3g} "
+                             f"({mu_where}) "
+                             f"of the {len(significant)} tensors with a gradient (limit {DP_MOMENT_REL_L2})")
+    log("dp_train", f"torchrun 2 ranks on one card over gloo, ViT-L 2-view 256x256 fp32, global batch 2 (1 a rank; "
+                    f"configs/scannet.yaml's 3 does not divide by 2), 2 + 4 views, {N_OBJECTS} objects, "
+                    f"{DP_STEPS} steps with injected points: {seconds:.1f} s; against the one-process oracle: loss "
+                    f"terms worst rel per step {[(float(f'{x:.3g}'), k) for x, k in loss_rel]} (rtol {DP_LOSS_RTOL}, "
+                    f"then {DP_LATER_LOSS_RTOL}), BatchNorm statistics within "
+                    f"rtol {DP_STATS_RTOL} (worst excess {stats_err:.3g} <= {DP_STATS_ATOL}), parameter updates rel "
+                    f"L2 {update_all:.3g} over all (limit {DP_UPDATE_REL_L2}; the worst tensor {update_rel:.3g}, "
+                    f"{where}), Adam's first moment after step 1 worst rel L2 {mu_rel:.3g} ({mu_where}) of the "
+                    f"{len(significant)} "
+                    f"of {len(before)} tensors with a gradient above 1e-6 of the norm (limit {DP_MOMENT_REL_L2}); both "
+                    f"ranks end with the same weights; totals {[round(s['losses']['total'], 5) for s in ranks[0]['steps']]}")
+    for r in ranks:
+        log("dp_train", f"rank {r['rank']} ({r['device']}, {r['backend']}): {_rank_text(r)}")
+    return dict(seconds=seconds, ranks=ranks, oracle_losses=oracle_losses, loss_rel=loss_rel, stats_excess=stats_err,
+                update_rel_l2=update_all, update_rel_l2_worst=update_rel, update_worst=where, moment_rel_l2=mu_rel,
+                launches=[r["steps"][-1]["launches"] for r in ranks])
+
+
+def phase_nccl() -> dict:
+    """Phase dp_train's steps under ``torchrun --nproc_per_node 1`` with
+    the nccl backend (one item, both steps' points): NCCL's init and
+    all-reduce on the card, their bytes and ms (the second step's: the
+    first one's all-reduce includes the communicator's set-up). Where the
+    machine has two cards, the same two-rank run as phase dp_train over
+    nccl, printed (no gate)."""
+    if "batch" not in _DP:
+        pipe, batch, injected = _dp_inputs()
+        _DP.update(batch={k: v.cpu() for k, v in batch.items()}, injected=injected)
+        del pipe
+        torch.cuda.empty_cache()
+    wdir = Path(tempfile.mkdtemp(prefix="nccl_"))
+    first = {k: v[:1] for k, v in _DP["batch"].items()}
+    torch.save({"batch": first, "injected": [[{k: v[:1] for k, v in d.items()} for d in step]
+                                             for step in _DP["injected"]], "save_state": False}, wdir / "inputs.pt")
+    seconds, _, (r,) = _ranks("nccl", "dp_train", 1, wdir, "nccl")
+    s = r["steps"][-1]
+    if (r["backend"] != "nccl" or not s["all_reduce_bytes"]
+            or not all(math.isfinite(x) for step in r["steps"] for x in step["losses"].values())):
+        raise AssertionError(f"nccl: {r}")
+    log("nccl", f"torchrun 1 rank over nccl, ViT-L 2-view 256x256 fp32, B=1: {seconds:.1f} s; {_rank_text(r)}")
+    res = dict(seconds=seconds, rank=r, launches=s["launches"])
+    if torch.cuda.device_count() >= 2:
+        torch.save({"batch": _DP["batch"], "injected": _DP["injected"], "save_state": False}, wdir / "inputs.pt")
+        seconds, _, ranks = _ranks("nccl", "dp_train", 2, wdir, "nccl")
+        for r in ranks:
+            log("nccl", f"two cards over nccl, rank {r['rank']} ({r['device']}): {_rank_text(r)}")
+        res["two_cards"] = ranks
+    shutil.rmtree(wdir)
+    return res
+
+
+def worker_zero1_train(wdir: Path, backend: str) -> None:
+    """One rank of phase zero1_train: configs/scannet_multi.yaml's model
+    (seed 0) on its slice of ``inputs.pt``'s batch. From the same state: one
+    step with the replicated ``AdamW3`` and one with ZeRO-1
+    (``trainer.zero1``, ``Zero1AdamW3``), each with its ms, peak memory,
+    launches, collectives and the optimizer state's bytes; then a third,
+    ZeRO-1 again, whose averaged gradients are kept on the host, and from
+    the same state the replicated ``AdamW3`` update on those gradients, held
+    against that step's ZeRO-1 parameters."""
+    from siu3r_tpu_torch import parallel
+    from siu3r_tpu_torch.pipeline import Pipeline
+    from siu3r_tpu_torch.train.optimizer import AdamW3
+
+    device = parallel.init_distributed(backend, "cuda")
+    rank = parallel.rank()
+    parallel.stats.timed = True
+    inp = torch.load(wdir / "inputs.pt", weights_only=False)
+    cfg = multi_cfg()
+    pipe = Pipeline(cfg, device=device, seed=0)
+    batch = {k: v.to(device) for k, v in parallel.shard_batch(inp["batch"]).items()}
+    start = {k: v.detach().cpu().clone() for k, v in pipe.model.state_dict().items()}
+    params = dict(pipe.model.named_parameters())
+    res, grads = {}, {}
+    for mode in ("replicated", "zero1", "zero1, gradients kept"):
+        pipe.model.load_state_dict(start)
+        pipe.optimizer = None
+        torch.cuda.empty_cache()
+        cfg.trainer.zero1 = mode != "replicated"
+        pipe.init_train(steps_per_epoch=1000)
+        opt = pipe.optimizer
+        if mode == "zero1, gradients kept":  # on the host, out of the timed and measured steps
+            step = opt.step
+
+            def recording_step():
+                grads.update({n: p.grad.to("cpu", copy=True) for n, p in params.items()})
+                return step()
+
+            opt.step = recording_step
+            _dp_step_record(pipe, batch, inp["injected"][0], device)
+            break
+        rec = _dp_step_record(pipe, batch, inp["injected"][0], device)
+        rec["optimizer"] = type(opt).__name__
+        rec["state_bytes"] = sum(t.numel() * t.element_size() for t in [*opt.mu.values(), *opt.nu.values()])
+        res[mode] = rec
+    zero1 = {n: p.detach().clone() for n, p in params.items()}
+    pipe.model.load_state_dict(start)
+    pipe.optimizer = None
+    torch.cuda.empty_cache()
+    replicated = AdamW3(pipe.model, cfg.optimizer, cfg.trainer, steps_per_epoch=1000,
+                        freeze_encoder=cfg.pipeline.model.croco.freeze == "encoder")
+    for n, p in params.items():
+        p.grad = grads[n].to(device)
+    replicated.step()
+    res["zero1_vs_replicated"] = max((p.detach() - zero1[n]).abs().max().item() for n, p in params.items())
+    res["moved"] = max((zero1[n] - start[n].to(device)).abs().max().item() for n in params)
+    res.update(rank=rank, device=str(device), backend=backend, checksum=float(sum(p.double().sum() for p in zero1.values())))
+    (wdir / f"rank{rank}.json").write_text(json.dumps(res))
+    parallel.barrier()
+    parallel.shutdown()
+
+
+def phase_zero1_train() -> dict:
+    """Two ranks on the one card over gloo, configs/scannet_multi.yaml at full
+    width (8 context + 10 target views, 48 objects, one item a rank), one
+    step: on each rank the ZeRO-1 parameters within ZERO1_ATOL of the
+    replicated ``AdamW3`` update on the same averaged gradients from the
+    same state (``worker_zero1_train``), both ranks alike; each rank's
+    optimizer-state bytes, step ms and peak memory, ZeRO-1 against the
+    replicated step's, and the launches of kernels 1-6."""
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    cfg = multi_cfg()
+    mcfg = cfg.pipeline.model
+    pipe = Pipeline(cfg, device="cuda", seed=0)
+    batch = _framed_items(pipe, mcfg.num_views, multi_targets(cfg), DP_RANKS, seed=41)
+    injected = _injected_coords(mcfg, DP_RANKS, N_OBJECTS, mcfg.num_views, "cpu", seed=42)
+    expected = {**expected_launches(mcfg), "bin": 1, "raster": 1, "raster_bwd": 1}
+    del pipe
+    torch.cuda.empty_cache()
+    wdir = Path(tempfile.mkdtemp(prefix="zero1_"))
+    torch.save({"batch": {k: v.cpu() for k, v in batch.items()}, "injected": [injected]}, wdir / "inputs.pt")
+    del batch
+    seconds, _, ranks = _ranks("zero1_train", "zero1_train", DP_RANKS, wdir, "gloo")
+    shutil.rmtree(wdir)
+    worst = max(r["zero1_vs_replicated"] for r in ranks)
+    launches_ok = all(r[m]["launches"] == expected for r in ranks for m in ("replicated", "zero1"))
+    if (worst > ZERO1_ATOL or not all(r["moved"] > 0 for r in ranks) or len({r["checksum"] for r in ranks}) != 1
+            or not launches_ok or any(r["zero1"]["optimizer"] != "Zero1AdamW3" for r in ranks)):
+        raise AssertionError(f"zero1_train: ZeRO-1 against the replicated update {[r['zero1_vs_replicated'] for r in ranks]}"
+                             f" (atol {ZERO1_ATOL}), moved {[r['moved'] for r in ranks]}, launches "
+                             f"{[(r['replicated']['launches'], r['zero1']['launches']) for r in ranks]} (expected "
+                             f"{expected}), checksums {[r['checksum'] for r in ranks]}")
+    log("zero1_train", f"torchrun 2 ranks on one card over gloo, configs/scannet_multi.yaml ViT-L 8-view 256x256 fp32, "
+                       f"8 + {multi_targets(cfg)} views, {N_OBJECTS} objects, 1 item a rank, one step: {seconds:.1f} s; "
+                       f"ZeRO-1 parameters against the replicated AdamW3 update on the same averaged gradients from "
+                       f"the same state: worst {worst:.3g} (atol {ZERO1_ATOL}); both ranks alike; launches per step "
+                       f"{expected} (expected) on every rank")
+    for r in ranks:
+        for mode in ("replicated", "zero1"):
+            s = r[mode]
+            log("zero1_train", f"rank {r['rank']} {mode} ({s['optimizer']}): optimizer state "
+                               f"{s['state_bytes'] / 2**30:.3f} GiB, step {s['ms']:.1f} ms, peak {s['peak_gib']:.3f} "
+                               f"GiB, all_reduce {s['all_reduce_bytes'] / 2**30:.3f} GiB {s['all_reduce_ms']:.1f} ms, "
+                               f"all_gather {s['all_gather_bytes'] / 2**30:.3f} GiB {s['all_gather_ms']:.1f} ms")
+    return dict(seconds=seconds, ranks=ranks, worst=worst, launches=[r["zero1"]["launches"] for r in ranks])
+
+
+def phase_dp_validate() -> dict:
+    """``torchrun --nproc_per_node 2 -m siu3r_tpu_torch.cli.validate
+    --dist_backend gloo --config configs/scannet.yaml --ckpt W`` on phase
+    validate's synthetic root and weights: batch 2 (the default, one scene a
+    rank), its VAL_SCENES scenes; the same files as the one-rank sweep of
+    phase validate, written once (one writer), and results within the
+    limits phase validate holds its CLI to (``_compare_sweeps``, the label
+    maps, PROCESS_LIMITS); each rank's launches (``sweep.json``) those of
+    kernels 1-5 only; the sweep's ms a scene."""
+    from siu3r_tpu_torch.eval import evaluator as E
+
+    if "dir" not in _SWEEP:
+        phase_validate()
+    here = Path(__file__).resolve().parent
+    root, tmp = _SWEEP["root"], Path(_SWEEP["tmp"].name)
+    out = tmp / "val_dp"
+    seconds, stdout = _torchrun("dp_validate", DP_RANKS, [
+        "-m", "siu3r_tpu_torch.cli.validate", "--dist_backend", "gloo", "--config",
+        str(here / "configs" / "scannet.yaml"), "--ckpt", str(_SWEEP["weights"]), "--limit",
+        str(VAL_SCENES // DP_RANKS), "--output_path", str(out), f"datamodule.dataset_cfg.root={root}"], 600)
+    got = json.loads((out / "results.json").read_text())
+    sweep = json.loads((out / "sweep.json").read_text())
+    files = lambda d: sorted(str(p.relative_to(d)) for p in d.rglob("*") if p.is_file())
+    if files(out) != files(_SWEEP["dir"]):
+        raise AssertionError(f"dp_validate: files {sorted(set(files(out)) ^ set(files(_SWEEP['dir'])))} differ "
+                             f"from the one-rank sweep's")
+    launches = sweep["launches"]
+    bad = [x for x in launches if not all(x.get(k, 0) > 0 for k in ("flash_attn_rope", "flash_attn", "msda", "bin",
+                                                                      "raster")) or x.get("raster_bwd", 0)]
+    if (sweep["devices"] != DP_RANKS or sweep["batch_size"] != DP_RANKS or sweep["n_scenes"] != VAL_SCENES
+            or len(launches) != DP_RANKS or bad):
+        raise AssertionError(f"dp_validate: sweep {sweep}")
+    agree = _label_agreement(out, _SWEEP["dir"])
+    evaluator = E.Evaluator(_sweep_cfg(root).pipeline.evaluator, device="cuda")
+    swapped = _swapped_results(evaluator, out, _SWEEP["dir"], tmp)
+    excess = _compare_sweeps("dp_validate", got, _SWEEP["results"], agree, PROCESS_LIMITS, swapped)
+    diff = _png_diff(out, _SWEEP["dir"])
+    shutil.rmtree(out)
+    log("dp_validate", f"torchrun 2 ranks on one card over gloo, siu3r_tpu_torch.cli.validate, ViT-L 2-view 256x256 "
+                       f"fp32, batch 2 (one scene a rank), {VAL_SCENES} scenes: {seconds:.1f} s; per batch step s "
+                       f"{[round(x, 3) for x in sweep['step_seconds']]}, host s "
+                       f"{[round(x, 3) for x in sweep['host_seconds']]}; {sweep.get('ms_per_scene', 0):.1f} ms/scene "
+                       f"eval step (batches 2-{VAL_SCENES // DP_RANKS}); launches per rank {launches}; the one-rank "
+                       f"sweep's files, once; label maps agree {agree:.6f}; excess over the one-rank sweep "
+                       f"{({k: float(f'{v:.3g}') for k, v in excess.items()})}; files [n, differing, largest pixel "
+                       f"difference] {diff}")
+    return dict(seconds=seconds, sweep=sweep, excess=excess, label_agreement=agree, files=diff, launches=launches)
+
+
+def _train_cli_dp(out: Path, resume: Path, extra: list, nproc: int) -> tuple[float, str]:
+    """``siu3r_tpu_torch.cli.train`` on configs/scannet.yaml at the sweep's
+    root, ZeRO-1, k = 2, a global batch of 2, max_steps 4, one loader
+    worker: under torchrun over gloo on ``nproc`` ranks, or one process."""
+    here = Path(__file__).resolve().parent
+    args = ["--resume", str(resume), "--config", str(here / "configs" / "scannet.yaml"), "trainer.zero1=true",
+            f"trainer.devices={nproc}", "trainer.accumulate_grad_batches=2", "trainer.max_steps=4",
+            "trainer.log_every_n_steps=1", "trainer.check_val_every_n_epoch=1", "datamodule.train_loader_cfg.batch_size=2",
+            "datamodule.train_loader_cfg.num_workers=1", f"datamodule.dataset_cfg.root={_SWEEP['root']}",
+            f"output_path={out}", *extra]
+    if nproc > 1:
+        return _torchrun("dp_train_cli", nproc, ["-m", "siu3r_tpu_torch.cli.train", "--dist_backend", "gloo", *args],
+                         900)
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "siu3r_tpu_torch.cli.train", *args], cwd=here, capture_output=True,
+                         text=True, timeout=900)
+    if cli.returncode != 0:
+        raise RuntimeError(f"dp_train_cli: the one-process run exited {cli.returncode}:\n{cli.stdout[-3000:]}\n"
+                           f"{cli.stderr[-4000:]}")
+    return time.perf_counter() - t0, cli.stdout
+
+
+def phase_dp_train_cli() -> dict:
+    """``torchrun --nproc_per_node 2 -m siu3r_tpu_torch.cli.train
+    --dist_backend gloo`` with ``trainer.zero1=true`` and k = 2 at full width,
+    a global batch of 2 (three steps an epoch on the six train scenes), from
+    a one-process training state of ``_scored`` weights (epoch -1): four
+    steps, with train_viz every 2 and a checkpoint at the end of epoch 0, in
+    the middle of an accumulation (a step and a half done); then
+    ``--resume`` of that checkpoint under two ranks, whose step 3 and final
+    checkpoint must equal the uninterrupted run's (the record bitwise; each
+    parameter's update from the checkpoint within DP_UPDATE_REL_L2, the
+    moments within it in relative L2); then the same checkpoint resumed by a
+    one-process ``cli/train`` (ZeRO-1 ignored there), with finite losses."""
+    from siu3r_tpu_torch.checkpoint_io import save_train_state
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    root = _sweep_root()
+    tmp = Path(_SWEEP["tmp"].name)
+    cfg = _sweep_cfg(root)
+    cfg.mode = "train"
+    cfg.trainer.accumulate_grad_batches = 2
+    pipe = Pipeline(cfg, device="cuda", seed=5).init_train(steps_per_epoch=TRAIN_SCENES // DP_RANKS)
+    _scored(pipe.model, 4, depth=0.5, scale=30.0)
+    start = tmp / "dp_start.pt"
+    save_train_state(start, pipe, -1, 0)
+    del pipe
+    torch.cuda.empty_cache()
+    full, resumed, one = tmp / "dp_cli", tmp / "dp_cli_resumed", tmp / "dp_cli_one"
+    full_s, stdout = _train_cli_dp(full, start, ["pipeline.log_training_result_interval=2"], DP_RANKS)
+    start.unlink()
+    ckpts = sorted(p.name for p in (full / "checkpoints").iterdir())
+    records = _train_records(full)
+    viz = sorted(p.name for p in (full / "train_viz").iterdir())
+    scenes = {p.parent.parent.name for p in (full / "train_viz" / "step0000000").rglob("rgb/*.png")}
+    if ([r["step"] for r in records] != [0, 1, 2, 3] or ckpts != ["epoch000-3", "epoch001-4"]
+            or viz != ["step0000000", "step0000002"] or len(scenes) != DP_RANKS or "Zero1AdamW3" not in stdout
+            or not all(math.isfinite(r["train/total"]) for r in records)):
+        raise AssertionError(f"dp_train_cli: records {records}, checkpoints {ckpts}, train_viz {viz} {scenes}:\n"
+                             f"{stdout[-3000:]}")
+    mid_path = full / "checkpoints" / "epoch000-3"
+    mid = torch.load(mid_path, map_location="cpu", mmap=True, weights_only=False)
+    if mid["optimizer"]["mini_step"] != 1 or mid["optimizer"]["inner"]["count"] != 1 or mid["optimizer"]["acc"] is None:
+        raise AssertionError(f"dp_train_cli: epoch000-3 is not mid-accumulation: mini_step "
+                             f"{mid['optimizer']['mini_step']}, count {mid['optimizer']['inner']['count']}")
+    resumed_s, rstdout = _train_cli_dp(resumed, mid_path, [], DP_RANKS)
+    rrec = _train_records(resumed)
+    if "epoch 1, step 3" not in rstdout or [r["step"] for r in rrec] != [3]:
+        raise AssertionError(f"dp_train_cli: the resumed run's records {rrec}:\n{rstdout[-3000:]}")
+    a = torch.load(full / "checkpoints" / "epoch001-4", map_location="cpu", mmap=True, weights_only=False)
+    b = torch.load(resumed / "checkpoints" / "epoch001-4", map_location="cpu", mmap=True, weights_only=False)
+    update_rel, _, _ = _update_rel_l2(mid["model"], b["model"], a["model"])
+    zero = {n: torch.zeros_like(v) for n, v in a["optimizer"]["inner"]["mu"].items()}
+    moments = {key: _update_rel_l2(zero, b["optimizer"]["inner"][key], a["optimizer"]["inner"][key])[0]
+               for key in ("mu", "nu")}
+    loss_rel = abs(rrec[0]["train/total"] - records[3]["train/total"]) / abs(records[3]["train/total"])
+    if loss_rel > DP_LOSS_RTOL or update_rel > DP_UPDATE_REL_L2 or max(moments.values()) > DP_MOMENT_REL_L2:
+        raise AssertionError(f"dp_train_cli: the resumed step 3 {rrec[0]['train/total']} against "
+                             f"{records[3]['train/total']} (rtol {DP_LOSS_RTOL}); update rel L2 {update_rel:.3g} over "
+                             f"all parameters (limit {DP_UPDATE_REL_L2}), moments {moments} (limit "
+                             f"{DP_MOMENT_REL_L2})")
+    del a, b
+    one_s, ostdout = _train_cli_dp(one, mid_path, [], 1)
+    orec = _train_records(one)
+    if ("epoch 1, step 3" not in ostdout or "AdamW3" not in ostdout or [r["step"] for r in orec] != [3]
+            or not math.isfinite(orec[0]["train/total"]) or not (one / "checkpoints" / "epoch001-4").exists()):
+        raise AssertionError(f"dp_train_cli: the one-process resume's records {orec}:\n{ostdout[-3000:]}")
+    ckpt_gib = mid_path.stat().st_size / 2**30
+    del mid
+    for d in (full, resumed, one):
+        shutil.rmtree(d / "checkpoints")
+    log("dp_train_cli", f"torchrun 2 ranks on one card over gloo, siu3r_tpu_torch.cli.train, configs/scannet.yaml "
+                        f"(ViT-L 2-view 256x256 fp32), ZeRO-1, k=2, global batch 2, 4 steps: {full_s:.1f} s, totals "
+                        f"{[round(r['train/total'], 4) for r in records]}, train_viz {viz} ({len(scenes)} scenes "
+                        f"gathered), checkpoints {ckpts} (epoch000-3 mid-accumulation, {ckpt_gib:.3f} GiB in the "
+                        f"one-device layout); --resume epoch000-3 under 2 ranks: {resumed_s:.1f} s, step 3's total "
+                        f"rel {loss_rel:.3g} (rtol {DP_LOSS_RTOL}), its checkpoint's update rel L2 {update_rel:.3g} "
+                        f"over all parameters, moments "
+                        f"{({k: float(f'{v:.3g}') for k, v in moments.items()})} (limits {DP_UPDATE_REL_L2}, "
+                        f"{DP_MOMENT_REL_L2}); the "
+                        f"same checkpoint in one process: {one_s:.1f} s, step 3 total {orec[0]['train/total']:.4f}")
+    return dict(full_s=full_s, resumed_s=resumed_s, one_s=one_s, totals=[r["train/total"] for r in records],
+                loss_rel=loss_rel, update_rel_l2=update_rel, moments_rel_l2=moments, checkpoint_gib=ckpt_gib,
+                one_process_total=orec[0]["train/total"])
+
+
+WORKERS = {"dp_train": worker_dp_train, "zero1_train": worker_zero1_train}
 
 
 # ---------------------------------------------------------------- main
@@ -3232,7 +3874,8 @@ PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "ras
           "multi_cli": phase_multi_cli, "refer_slice": phase_refer_slice, "refer_forward": phase_refer_forward,
           "refer_eval": phase_refer_eval, "refer_train": phase_refer_train, "refer_cli": phase_refer_cli,
           "val_slice": phase_val_slice, "validate": phase_validate, "evaluate": phase_evaluate,
-          "train_cli": phase_train_cli}
+          "dp_validate": phase_dp_validate, "train_cli": phase_train_cli, "dp_train": phase_dp_train,
+          "zero1_train": phase_zero1_train, "dp_train_cli": phase_dp_train_cli, "nccl": phase_nccl}
 
 
 SM_CLOCKS: dict = {}  # phase -> the SM clock (current, max) at its start and end
@@ -3242,9 +3885,12 @@ def run_phase(name: str):
     """Run phase ``name`` between two samples of the SM clock, logged on the
     phase's lines."""
     start = sm_clock()
+    t0 = time.perf_counter()
     out = PHASES[name]()
+    seconds = time.perf_counter() - t0
     SM_CLOCKS[name] = [start, sm_clock()]
-    log(name, f"SM clock (current, max) at the start {SM_CLOCKS[name][0]}, at the end {SM_CLOCKS[name][1]}")
+    log(name, f"SM clock (current, max) at the start {SM_CLOCKS[name][0]}, at the end {SM_CLOCKS[name][1]}; "
+              f"{seconds:.1f} s")
     return out
 
 
@@ -3263,7 +3909,16 @@ def main(argv=None) -> None:
     parser.add_argument("--phases", type=str, default=",".join(PHASES),
                         help="comma-separated phases to run after the environment and the build "
                              f"(default: all of {','.join(PHASES)}); the JSON lines need all of them")
+    # the data-parallel phases start this script on each rank under torchrun
+    parser.add_argument("--rank_worker", choices=sorted(WORKERS), default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--worker_dir", type=str, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"), default="nccl", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.rank_worker:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
+        WORKERS[args.rank_worker](Path(args.worker_dir), args.dist_backend)
+        return
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         parser.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
@@ -3298,7 +3953,13 @@ def main(argv=None) -> None:
     vsl = run_phase("val_slice")
     val = run_phase("validate")
     evl = run_phase("evaluate")
+    dval = run_phase("dp_validate")
     tcli = run_phase("train_cli")
+    dtr = run_phase("dp_train")
+    ztr = run_phase("zero1_train")
+    dcli = run_phase("dp_train_cli")
+    nccl = run_phase("nccl")
+    _SWEEP["tmp"].cleanup()
 
     # per kernel: the two-view path's launches and times (model kernels per
     # forward, at its shapes; render kernels per eval step and kernel 6 per
@@ -3341,6 +4002,12 @@ def main(argv=None) -> None:
             "train_cli": {"launches": tcli["launches"].get(name, 0),
                           **({k: tcli["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
                              if name in tcli["kernels"] else {})},
+            # the data-parallel paths, each rank's launches: one step of
+            # phases dp_train, zero1_train and nccl, the whole sweep of
+            # dp_validate
+            **{phase: {"launches": [x.get(name, 0) for x in res["launches"]]}
+               for phase, res in (("dp_train", dtr), ("zero1_train", ztr), ("dp_validate", dval))},
+            "nccl": {"launches": nccl["launches"].get(name, 0)},
         })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
@@ -3348,6 +4015,7 @@ def main(argv=None) -> None:
             {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr, "multi_forward": mfwd,
              "multi_eval": mev, "multi_train": mtr, "refer_forward": rfwd, "refer_eval": rev, "refer_train": rtr,
              "refer_cli": rcli, "val_slice": vsl, "validate": val, "evaluate": evl, "train_cli": tcli,
+             "dp_validate": dval, "dp_train": dtr, "zero1_train": ztr, "dp_train_cli": dcli, "nccl": nccl,
              "sm_clock": SM_CLOCKS}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

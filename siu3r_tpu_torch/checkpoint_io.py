@@ -5,7 +5,13 @@ step count, under gradient accumulation the running mean of the gradients
 and the micro-step count (the JAX package keeps them in its ``opt_leaves``),
 and the loop's epoch and global step, in one ``torch.save`` file. A restored
 state continues training as the saved one would, also from the middle of an
-accumulation."""
+accumulation.
+
+Under a process group every rank calls both: the file is written by rank 0
+alone, in the one-device layout (a ZeRO-1 state's moments and running mean
+gathered to full parameter shapes first), and each rank restores its own
+slice from it, so a one-device run and a data-parallel or ZeRO-1 run of the
+same config restore each other's state."""
 
 from __future__ import annotations
 
@@ -14,18 +20,23 @@ from typing import Tuple
 
 import torch
 
+from siu3r_tpu_torch import parallel
+
 
 def save_train_state(path: str | Path, pipeline, epoch: int, global_step: int) -> None:
-    """``pipeline`` after ``init_train``."""
-    torch.save(
-        {
-            "model": pipeline.model.state_dict(),
-            "optimizer": pipeline.optimizer.state_dict(),
-            "epoch": int(epoch),
-            "global_step": int(global_step),
-        },
-        Path(path),
-    )
+    """``pipeline`` after ``init_train``. Under a process group, a
+    collective: every rank calls it, rank 0 writes, and every rank returns
+    once the file is complete."""
+    state = {
+        "model": pipeline.model.state_dict(),
+        "optimizer": pipeline.optimizer.state_dict(),
+        "epoch": int(epoch),
+        "global_step": int(global_step),
+    }
+    if parallel.rank() == 0:
+        torch.save(state, Path(path))
+    del state
+    parallel.barrier()
 
 
 def restore_train_state(path: str | Path, pipeline) -> Tuple[int, int]:

@@ -1,9 +1,12 @@
 """The training entry point, counterpart of ``siu3r_tpu/cli/train.py``
-(reference src/run.py), on one device.
+(reference src/run.py), on one device or data-parallel over the ranks of a
+torchrun launch.
 
 Usage:
     python -m siu3r_tpu_torch.cli.train --config configs/scannet.yaml \
         [--resume out/checkpoints/epoch003-120] [--device cuda] [key.path=value ...]
+    torchrun --nproc_per_node N -m siu3r_tpu_torch.cli.train \
+        [--dist_backend nccl|gloo] --config ... [key.path=value ...]
 
 Builds the dataset and loader, runs ``Pipeline.train_step`` over them
 (``trainer.accumulate_grad_batches`` micro-steps to an optimizer step),
@@ -19,9 +22,18 @@ epoch), and each step's random draws come from a generator seeded with
 (seed + 1, global step), so with one loader worker the resumed run trains
 as the uninterrupted one would have.
 
-Runs on the GPU unless ``--device cpu`` is given. ``trainer.devices`` above
-1 is logged and training runs on the one device; data parallelism waits for
-the distributed slice.
+Runs on the GPU unless ``--device cpu`` is given. Under torchrun (one
+process a rank; ``--dist_backend gloo`` where ranks share a card, which NCCL
+refuses, or run on the CPU) every rank builds the same seeded loader and
+takes its contiguous slice of each global batch (the loader's batch size must
+divide by the number of ranks), ``Pipeline.train_step`` averages the
+gradients, loss terms and BatchNorm statistics over the ranks, and
+``trainer.zero1`` shards the optimizer state; rank r > 0 draws from a
+generator that mixes r into the step's seed (the JAX step's ``fold_in`` of the
+axis index). ``metrics.jsonl``, ``train_viz/`` (from the data-parallel eval
+step, gathered on rank 0) and the checkpoints are written by rank 0 only.
+``trainer.devices`` is the JAX package's mesh size; here the world size
+decides.
 """
 
 from __future__ import annotations
@@ -65,13 +77,16 @@ def build_dataset(cfg, train: bool):
     )
 
 
-def step_generator(seed: int, global_step: int, device):
+def step_generator(seed: int, global_step: int, device, rank: int = 0):
     """The random draws of step ``global_step`` (the criterion's sample
     points): a generator on ``device`` seeded with (seed + 1, global_step),
-    so that a resumed run continues the stream instead of replaying it."""
+    so that a resumed run continues the stream instead of replaying it. Rank
+    r > 0 of a data-parallel run adds r times the 64-bit golden ratio, modulo
+    2^64 (each rank its own draws); rank 0 keeps the one-device stream."""
     import torch
 
-    return torch.Generator(device=device).manual_seed(((seed + 1) << 32) + global_step)
+    base = ((seed + 1) << 32) + global_step
+    return torch.Generator(device=device).manual_seed((base + rank * 0x9E3779B97F4A7C15) % (1 << 64))
 
 
 def main(argv=None) -> dict:
@@ -80,25 +95,40 @@ def main(argv=None) -> dict:
     parser.add_argument("--resume", type=str, default=None,
                         help="training state to resume from (parameters, optimizer, counters)")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"), default="nccl",
+                        help="the process group's backend under torchrun (gloo where ranks share a card)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
+    from siu3r_tpu_torch import parallel
+
+    owns_group = not parallel.is_distributed()
+    try:
+        return _train(args)
+    finally:
+        if owns_group:
+            parallel.shutdown()
+
+
+def _train(args) -> dict:
     import torch
 
+    from siu3r_tpu_torch import parallel
     from siu3r_tpu_torch.checkpoint_io import restore_train_state, save_train_state
     from siu3r_tpu_torch.config import bind_scannet_classes, load_config
     from siu3r_tpu_torch.data import Loader
-    from siu3r_tpu_torch.device import resolve_device
-    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline
+    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline, gather_eval_arrays
     from siu3r_tpu_torch.train.optimizer import make_lr_schedule
     from siu3r_tpu_torch.utils.logging import MetricsHistory, RankedLogger
-    from siu3r_tpu_torch.visualizer import Visualizer
+    from siu3r_tpu_torch.visualizer import Visualizer, eval_step_arrays
 
-    log = RankedLogger(__name__)
-    device = resolve_device(args.device)
+    log = RankedLogger(__name__, rank_zero_only=True)
+    device = parallel.init_distributed(args.dist_backend, args.device)
+    rank, world = parallel.rank(), parallel.world_size()
     cfg = bind_scannet_classes(load_config(args.config, args.overrides))
     out_dir = Path(cfg.output_path or f"outputs/{cfg.mode}/{cfg.experiment}")
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if rank == 0:
+        out_dir.mkdir(parents=True, exist_ok=True)
     history = MetricsHistory(out_dir)
 
     dataset = build_dataset(cfg, train=cfg.mode == "train")
@@ -110,11 +140,11 @@ def main(argv=None) -> dict:
         seed=cfg.seed,
     )
     steps_per_epoch = max(len(loader), 1)
-    if cfg.trainer.devices > 1:
-        log.info(f"trainer.devices={cfg.trainer.devices}: training runs on the one device {device}")
+    parallel.shard_slice(cfg.datamodule.train_loader_cfg.batch_size)  # raises unless the ranks divide the batch
     pipe = Pipeline(cfg, device=device, seed=cfg.seed).init_train(steps_per_epoch=steps_per_epoch)
-    log.info(f"device {device}; steps/epoch {steps_per_epoch}; "
-             f"accumulate_grad_batches {cfg.trainer.accumulate_grad_batches}")
+    log.info(f"device {device}; {world} rank(s); steps/epoch {steps_per_epoch}; "
+             f"accumulate_grad_batches {cfg.trainer.accumulate_grad_batches}; optimizer "
+             f"{type(getattr(pipe.optimizer, 'inner', pipe.optimizer)).__name__}")
 
     start_epoch, global_step = 0, 0
     if args.resume:
@@ -129,11 +159,15 @@ def main(argv=None) -> dict:
     viz = Visualizer(cfg.pipeline.visualizer)
 
     def write_train_viz(batch, inputs, step):
-        """The eval step on the train batch, its renders and overlays under
-        ``train_viz/step…`` (reference src/pipeline.py:271-280)."""
+        """The eval step on the train batch (each rank's slice, gathered on
+        rank 0), its renders and overlays under ``train_viz/step…``
+        (reference src/pipeline.py:271-280)."""
         out, render, _ = pipe.eval_step({k: inputs[k] for k in EVAL_KEYS})
+        arrays = gather_eval_arrays(eval_step_arrays(out, render))
+        if arrays is None:
+            return
         save_dir = out_dir / "train_viz" / f"step{step:07d}"
-        viz.add_eval_step(str(save_dir), batch, out, render)
+        viz.add_eval_arrays(str(save_dir), batch, arrays)
         viz.write_files()
         log.info(f"wrote training visualization: {save_dir}")
 
@@ -145,9 +179,9 @@ def main(argv=None) -> dict:
         for batch in loader:
             if max_steps >= 0 and global_step >= max_steps:
                 break
-            inputs = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+            inputs = {k: torch.from_numpy(v).to(device) for k, v in parallel.shard_batch(batch).items()
                       if isinstance(v, np.ndarray) and v.dtype != object}
-            losses = pipe.train_step(inputs, step_generator(cfg.seed, global_step, device))
+            losses = pipe.train_step(inputs, step_generator(cfg.seed, global_step, device, rank))
             # a refer batch has no target views to render
             if viz_interval > 0 and global_step % viz_interval == 0 and "target_views_images" in batch:
                 try:
@@ -167,7 +201,8 @@ def main(argv=None) -> dict:
         if ((epoch + 1) % cfg.trainer.check_val_every_n_epoch == 0 or epoch == cfg.trainer.max_epochs - 1
                 or hit_max_steps):
             ckpt = out_dir / "checkpoints" / f"epoch{epoch:03d}-{global_step}"
-            ckpt.parent.mkdir(parents=True, exist_ok=True)
+            if rank == 0:
+                ckpt.parent.mkdir(parents=True, exist_ok=True)
             save_train_state(ckpt, pipe, epoch, global_step)
             saved.append(str(ckpt))
             log.info(f"saved checkpoint {ckpt}")

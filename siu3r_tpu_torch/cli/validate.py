@@ -1,5 +1,6 @@
 """Validation sweep, counterpart of ``siu3r_tpu/cli/validate.py`` (reference
-``mode=val`` path: pipeline.py:289-326), on one device.
+``mode=val`` path: pipeline.py:289-326), on one device or data-parallel over
+the ranks of a torchrun launch.
 
 Runs ``Pipeline.eval_step`` (the lift forward and the novel-view render of
 the 2 context and 4 extra target views) over the val split, writes each
@@ -12,13 +13,22 @@ Usage:
     python -m siu3r_tpu_torch.cli.validate --config configs/scannet.yaml \
         [--ckpt model.ckpt] [--batch_size 1] [--limit 10] [--device cuda] \
         [key.path=value ...]
+    torchrun --nproc_per_node N -m siu3r_tpu_torch.cli.validate \
+        [--dist_backend nccl|gloo] --config ... [key.path=value ...]
 
 Runs on the GPU unless ``--device cpu`` is given. ``--ckpt`` takes what
 ``weights.load_checkpoint`` reads (a reference Lightning ``.ckpt``, a saved
 training state or a bare state dict); without it the weights are a seeded
-random init (seed 0). ``trainer.devices`` above 1 is logged and the sweep
-runs on the one device; the data-parallel sweep waits for the distributed
-slice.
+random init (seed 0). ``--batch_size`` defaults to the number of ranks (1
+without torchrun) and must divide by it; the last batch is padded by
+repeating its last item (the count of real scenes, ``n_real``, decides what
+is written). Under torchrun (``--dist_backend gloo`` where ranks share a card)
+each rank runs the eval step on its contiguous slice of every batch and lifts
+its own label maps; rank 0 gathers them on the host (the JAX package's
+``make_dp_eval_step`` and its host gather), writes every file, and runs the
+Evaluator while the other ranks wait at a barrier. ``sweep.json``'s
+``devices`` is the number of ranks, its timings are rank 0's and its
+``launches`` each rank's kernel launches.
 """
 
 from __future__ import annotations
@@ -56,32 +66,49 @@ def main(argv=None) -> dict:
     parser.add_argument("--ckpt", type=str, default=None)
     parser.add_argument("--output_path", type=str, default=None)
     parser.add_argument("--limit", type=int, default=-1, help="max number of eval batches")
-    parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--batch_size", type=int, default=None, help="global batch (default: the number of ranks)")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"), default="nccl",
+                        help="the process group's backend under torchrun (gloo where ranks share a card)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
+    from siu3r_tpu_torch import parallel
+
+    owns_group = not parallel.is_distributed()
+    try:
+        return _validate(args)
+    finally:
+        if owns_group:
+            parallel.shutdown()
+
+
+def _validate(args) -> dict:
+    from siu3r_tpu_torch import parallel
     from siu3r_tpu_torch.cli.train import build_dataset
     from siu3r_tpu_torch.config import bind_scannet_classes, load_config
     from siu3r_tpu_torch.data import Loader
-    from siu3r_tpu_torch.device import resolve_device
     from siu3r_tpu_torch.eval.evaluator import Evaluator
-    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline
+    from siu3r_tpu_torch.kernels import _build
+    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline, gather_eval_arrays
     from siu3r_tpu_torch.utils.logging import RankedLogger
     from siu3r_tpu_torch.utils.profiling import sync
-    from siu3r_tpu_torch.visualizer import Visualizer
+    from siu3r_tpu_torch.visualizer import Visualizer, eval_step_arrays
     from siu3r_tpu_torch.weights import load_checkpoint
 
-    log = RankedLogger(__name__)
-    device = resolve_device(args.device)
+    log = RankedLogger(__name__, rank_zero_only=True)
+    device = parallel.init_distributed(args.dist_backend, args.device)
+    world = parallel.world_size()
     cfg = bind_scannet_classes(load_config(args.config, args.overrides))
     cfg.mode = "val"
     cfg.datamodule.dataset_cfg.num_extra_target_views = 4  # config.py:180-181
     out_dir = Path(args.output_path or "outputs/val/run")
-    out_dir.mkdir(parents=True, exist_ok=True)
-    if cfg.trainer.devices > 1:
-        log.info(f"trainer.devices={cfg.trainer.devices}: this sweep runs on the one device {device}")
-    batch_size = args.batch_size
+    writer = parallel.rank() == 0
+    if writer:
+        out_dir.mkdir(parents=True, exist_ok=True)
+    batch_size = args.batch_size or world
+    if batch_size % world:
+        raise SystemExit(f"--batch_size {batch_size} not divisible by {world} ranks")
 
     dataset = build_dataset(cfg, train=False)
     loader = Loader(dataset, batch_size=batch_size, shuffle=False, num_workers=2, drop_last=False)
@@ -99,26 +126,36 @@ def main(argv=None) -> dict:
         if 0 < args.limit <= n_batches:
             break
         batch, n_real = _pad_batch(batch, batch_size)
-        inputs = {k: torch.from_numpy(batch[k]).to(device) for k in EVAL_KEYS}
+        mine = parallel.shard_batch({k: batch[k] for k in EVAL_KEYS})
+        inputs = {k: torch.from_numpy(v).to(device) for k, v in mine.items()}
         t0 = time.perf_counter()
         out, render, qc = pipe.eval_step(inputs)
         sync(qc)
         step_seconds.append(time.perf_counter() - t0)
-        viz.add_eval_step(str(out_dir), batch, out, render, qc=qc, m2f=m2f, n_real=n_real)
-        viz.write_files()
+        arrays = gather_eval_arrays(eval_step_arrays(out, render, qc, m2f))
+        del out, render, qc
+        if writer:
+            viz.add_eval_arrays(str(out_dir), batch, arrays, n_real=n_real)
+            viz.write_files()
         n_scenes += n_real
         n_batches += 1
         host_seconds.append(time.perf_counter() - t0 - step_seconds[-1])
         log.info(f"batch {n_batches} ({n_real} scenes): {step_seconds[-1]:.2f}s step + {host_seconds[-1]:.2f}s host")
 
-    sweep = {"n_scenes": n_scenes, "batch_size": batch_size, "devices": 1, "step_seconds": step_seconds,
-             "host_seconds": host_seconds}
+    # each rank's kernel launches over the sweep (none on the CPU)
+    launches = parallel.gather_to_rank0(dict(_build.launch_counts))
+    sweep = {"n_scenes": n_scenes, "batch_size": batch_size, "devices": world, "step_seconds": step_seconds,
+             "host_seconds": host_seconds, "launches": launches}
     if len(step_seconds) > 1:  # skip the first batch (warm-up)
         per_item = sum(step_seconds[1:]) / (len(step_seconds) - 1) / batch_size
         sweep["ms_per_scene"] = per_item * 1000
         sweep["scenes_per_sec"] = 1.0 / per_item
         log.info(f"eval step: {per_item * 1000:.1f} ms/scene ({1.0 / per_item:.2f} scenes/sec) at batch "
-                 f"{batch_size} on {device}")
+                 f"{batch_size} over {world} rank(s)")
+    # rank-0 evaluation behind a barrier (reference pipeline.py:315-326)
+    parallel.barrier()
+    if not writer:
+        return sweep
     ev = Evaluator(cfg.pipeline.evaluator, device=device)
     t0 = time.perf_counter()
     result = ev.evaluate(str(out_dir))

@@ -6,8 +6,11 @@ collate(): stacks per-sample dicts into batched numpy arrays — unlike the
 reference's ragged mask/class lists (scannet_datamodule.py:13-86), GT objects
 arrive pre-padded from the dataset so everything stacks densely (fixed shapes).
 
-Loader: thread-pool prefetcher producing host (numpy) batches; the caller
-moves them to the device.
+Loader: thread-pool prefetcher producing host (numpy) batches, in the
+order of the epoch's batch list whatever the number of workers (batch i
+comes from worker i % num_workers), so that every rank of a data-parallel
+run, iterating its own loader, takes its slice of the same global batch at
+each step; the caller moves them to the device.
 """
 
 from __future__ import annotations
@@ -77,10 +80,12 @@ class Loader:
             for i in range(n_batches)
         ]
 
-        q: "queue.Queue" = queue.Queue(maxsize=self.num_workers * 2)
+        # one queue a worker: worker w makes batches w, w + n, ..., and the
+        # consumer takes batch i from queue i % n, in order
+        queues: List["queue.Queue"] = [queue.Queue(maxsize=2) for _ in range(self.num_workers)]
         stop = threading.Event()
 
-        def worker(batch_indices_list):
+        def worker(q, batch_indices_list):
             for idxs in batch_indices_list:
                 if stop.is_set():
                     return
@@ -93,17 +98,15 @@ class Loader:
 
         chunks = [batches[i :: self.num_workers] for i in range(self.num_workers)]
         threads = [
-            threading.Thread(target=worker, args=(c,), daemon=True) for c in chunks
+            threading.Thread(target=worker, args=(q, c), daemon=True) for q, c in zip(queues, chunks)
         ]
         for t in threads:
             t.start()
-        produced = 0
         try:
-            while produced < n_batches:
-                kind, payload = q.get()
+            for produced in range(n_batches):
+                kind, payload = queues[produced % self.num_workers].get()
                 if kind == "err":
                     raise payload
-                produced += 1
                 yield payload
         finally:
             stop.set()

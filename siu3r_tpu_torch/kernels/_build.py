@@ -28,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -89,16 +90,28 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile every source in parallel and link. Returns (library, seconds);
-    ptxas' register and shared-memory report goes to ``build.log`` beside it."""
+    ptxas' register and shared-memory report goes to ``build.log`` beside it.
+    Safe when several processes build at once (the ranks of a data-parallel
+    launch from a fresh checkout): each compiles and links in a directory of
+    its own under ``build/kernels/`` and renames the library and the log into
+    place, so no process reads another's half-written file."""
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_DIR))
+    try:
+        return lib, _build_in(work, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _build_in(work: Path, lib: Path) -> float:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
     for src in _sources():
-        obj = BUILD_DIR / f"{src.stem}.o"
+        obj = work / f"{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -109,18 +122,19 @@ def build() -> tuple[Path, float]:
         log.append(f"== {src.name}\n{out}")
         if proc.returncode != 0:
             failed.append(src.name)
-    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    (work / "build.log").write_text("\n".join(log))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
-    tmp = lib.with_suffix(".so.tmp")
+    tmp = work / lib.name
     link = subprocess.run(
         [nvcc, "-shared", *[str(o) for _, o, _ in procs], "-o", str(tmp)],
         capture_output=True, text=True,
     )
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-    tmp.replace(lib)
-    return lib, time.perf_counter() - t0
+    os.replace(work / "build.log", BUILD_DIR / "build.log")
+    os.replace(tmp, lib)
+    return time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=1)

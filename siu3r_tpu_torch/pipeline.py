@@ -13,8 +13,16 @@ attention kernels' backward is the plain version's VJP (the JAX package's
 backward there is XLA code, not a TPU kernel); the rest is autograd.
 With ``trainer.accumulate_grad_batches = k > 1`` the optimizer is
 ``MultiSteps`` (optax.MultiSteps' semantics): a step is k micro-steps whose
-gradients are averaged, the parameters moving on the k-th. Data parallelism
-waits for the distributed slice.
+gradients are averaged, the parameters moving on the k-th.
+Under a process group (``siu3r_tpu_torch.parallel``, one rank a process,
+launched by torchrun) ``train_step`` is the JAX package's data-parallel step
+(``make_dp_train_step``): each rank takes the loss and its backward on its
+slice of the global batch with its own random draws, then the gradients, the
+loss terms and the BatchNorm running statistics are averaged over the ranks
+(each rank's BatchNorm normalises with its own slice's statistics, as on the
+JAX mesh: no SyncBatchNorm) before the one optimizer update; with
+``trainer.zero1`` the optimizer state is sharded over the ranks
+(``Zero1AdamW3``).
 A batch with ``text_token`` (ScanRefer) trains the refer path instead
 (``refer_loss_fn``): the understanding-only forward, one final-layer
 Hungarian match and the word-match cross-entropy.
@@ -33,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from siu3r_tpu_torch import parallel
 from siu3r_tpu_torch.config import RootCfg
 from siu3r_tpu_torch.models.layers import resize_nhwc
 from siu3r_tpu_torch.models.model import ModelOutput, SIU3RModel
@@ -45,7 +54,7 @@ from siu3r_tpu_torch.train.losses import (
     segmentation_loss,
 )
 from siu3r_tpu_torch.train.matcher import hungarian_match_batch
-from siu3r_tpu_torch.train.optimizer import AdamW3, MultiSteps
+from siu3r_tpu_torch.train.optimizer import AdamW3, MultiSteps, Zero1AdamW3
 
 # the batch keys ``Pipeline.eval_step`` reads
 EVAL_KEYS = ("context_views_images", "context_views_intrinsics", "target_views_extrinsics",
@@ -66,12 +75,15 @@ class Pipeline:
     def init_train(
         self, steps_per_epoch: int = 1000, lpips_weights: Optional[str] = None, lpips_enabled: bool = True,
     ) -> "Pipeline":
-        """Set up training: the optimizer (fresh moments, step 0; wrapped in
-        ``MultiSteps`` when ``trainer.accumulate_grad_batches`` > 1) and LPIPS
-        (``lpips_weights`` if that file exists, else the fixed-seed VGG)."""
+        """Set up training: the optimizer (fresh moments, step 0; sharded over
+        the ranks with ``trainer.zero1`` under a group of more than one rank;
+        wrapped in ``MultiSteps`` when ``trainer.accumulate_grad_batches`` >
+        1) and LPIPS (``lpips_weights`` if that file exists, else the
+        fixed-seed VGG)."""
         self.lpips_params = (lpips_mod.init_lpips_params(lpips_weights, device=self.device)
                              if lpips_enabled else None)
-        self.optimizer = AdamW3(
+        zero1 = self.cfg.trainer.zero1 and parallel.world_size() > 1
+        self.optimizer = (Zero1AdamW3 if zero1 else AdamW3)(
             self.model, self.cfg.optimizer, self.cfg.trainer, steps_per_epoch=steps_per_epoch,
             freeze_encoder=self.cfg.pipeline.model.croco.freeze == "encoder",
         )
@@ -179,23 +191,47 @@ class Pipeline:
         losses["total"] = self.cfg.pipeline.weight_seg_loss * losses["word_match"]
         return losses["total"], losses
 
-    def train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    def train_step(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+                   injected_coords=None) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` (one micro-step under gradient
         accumulation): ``refer_loss_fn`` where it holds ``text_token``, else
-        ``loss_fn``. Returns every loss term, detached, on the device.
-        Parameters the loss does not reach (a refer step's heads) take a zero
-        gradient: AdamW still decays them."""
+        ``loss_fn``, each with ``generator`` or ``injected_coords`` as it takes
+        them. Returns every loss term, detached, on the device. Parameters the
+        loss does not reach (a refer step's heads) take a zero gradient:
+        AdamW still decays them. Under a process group, ``batch`` is this
+        rank's slice and ``generator`` this rank's; the gradients (a zero one
+        included), the loss terms and the BatchNorm running statistics are
+        averaged over the ranks before the update, so every rank returns the
+        same terms and keeps the same parameters."""
         if self.optimizer is None:
             raise RuntimeError("call init_train first")
         for p in self.model.parameters():
             p.grad = None
         loss_fn = self.refer_loss_fn if "text_token" in batch else self.loss_fn
-        loss, losses = loss_fn(batch, generator)
+        loss, losses = loss_fn(batch, generator, injected_coords)
         loss.backward()
+        losses = {k: x.detach() for k, x in losses.items()}
+        if parallel.is_distributed():
+            losses = self._mean_over_ranks(losses)
         self.optimizer.step()
         for p in self.model.parameters():
             p.grad = None
-        return {k: x.detach() for k, x in losses.items()}
+        return losses
+
+    def _mean_over_ranks(self, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The JAX step's three ``pmean``s: of the gradients (each
+        parameter's, zeros where the loss did not reach it), of the loss terms
+        and of the BatchNorm running statistics, in place. Returns the
+        averaged terms."""
+        params = list(self.model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        terms = torch.stack(list(losses.values()))
+        stats = [t for m in self.model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                 and m.track_running_stats for t in (m.running_mean, m.running_var)]
+        parallel.all_reduce_mean_([p.grad for p in params] + [terms] + stats)
+        return dict(zip(losses, terms.unbind()))
 
     @torch.inference_mode()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Tuple[ModelOutput, RenderOutput, torch.Tensor]:
@@ -266,3 +302,18 @@ def lift_rendered_qc(
     for stuff in stuff_ids:
         ins_id = torch.where(sem_id == stuff + 1, torch.full_like(ins_id, num_queries + stuff + 1), ins_id)
     return sem_id, ins_id
+
+
+def gather_eval_arrays(arrays: dict) -> Optional[dict]:
+    """The data-parallel eval step's gather (the JAX package's
+    ``make_dp_eval_step`` returns its outputs sharded and the caller fetches
+    them to the host): each rank's ``visualizer.eval_step_arrays`` of its
+    slice, concatenated along the batch in rank order on rank 0, which alone
+    writes; None on the other ranks. Without a group, ``arrays``."""
+    import numpy as np
+
+    parts = parallel.gather_to_rank0(arrays)
+    if parts is None:
+        return None
+    return {k: sum((p[k] for p in parts), []) if isinstance(v, list) else np.concatenate([p[k] for p in parts])
+            for k, v in arrays.items()}

@@ -18,17 +18,21 @@ Pipeline.configure_optimizers, pipeline.py:366-423).
     encoder keeps ``requires_grad`` and is left out of the update only.
 
 The updates run as multi-tensor (``torch._foreach_*``) operations per group.
+Under a process group of N ranks, ``Zero1AdamW3`` (``trainer.zero1``) keeps
+1/N of the state a rank (ZeRO-1); ``MultiSteps`` wraps either.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from siu3r_tpu_torch import parallel
 from siu3r_tpu_torch.config import OptimizerCfg, TrainerCfg
 
 GROUPS = ("normal", "high", "low")  # 5x, 3x, 0.1x; "frozen" gets no update
@@ -109,8 +113,11 @@ class AdamW3:
         self.weight_decay = opt_cfg.weight_decay
         self.clip = trainer_cfg.gradient_clip_val
         self.count = 0
-        self.mu = {n: torch.zeros_like(self.params[n]) for g in GROUPS for n in self.groups[g]}
-        self.nu = {n: torch.zeros_like(self.params[n]) for g in GROUPS for n in self.groups[g]}
+        self.mu = self._new_moments()
+        self.nu = self._new_moments()
+
+    def _new_moments(self) -> Dict[str, torch.Tensor]:
+        return {n: torch.zeros_like(self.params[n]) for g in GROUPS for n in self.groups[g]}
 
     def lr(self, group: str, step: int) -> float:
         return self.schedules[group](step)
@@ -123,45 +130,69 @@ class AdamW3:
         if grads is None:
             grads = _grads_of(self.params)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
-        if self.clip and self.clip > 0:
-            # optax.clip_by_global_norm: g if norm < clip else g / norm * clip,
-            # written (g / d) * clip with d = clip below the norm (exact for a
-            # power-of-two clip), on the device
-            d = torch.where(norm < self.clip, norm.new_full((), self.clip), norm)
-            clipped = torch._foreach_div(list(grads.values()), d)
-            torch._foreach_mul_(clipped, self.clip)
-            grads = dict(zip(grads, clipped))
+        grads = dict(zip(grads, self._clipped(list(grads.values()), norm)))
         count = self.count + 1
+        for group in GROUPS:
+            names = self.groups[group]
+            if names:
+                self._update(group, count, [self.params[n] for n in names], [grads[n] for n in names],
+                             [self.mu[n] for n in names], [self.nu[n] for n in names])
+        self.count = count
+        return norm
+
+    def _clipped(self, grads: List[torch.Tensor], norm: torch.Tensor) -> List[torch.Tensor]:
+        """optax.clip_by_global_norm: g if norm < clip else g / norm * clip,
+        written (g / d) * clip with d = clip below the norm (exact for a
+        power-of-two clip), on the device."""
+        if not (self.clip and self.clip > 0):
+            return grads
+        d = torch.where(norm < self.clip, norm.new_full((), self.clip), norm)
+        clipped = torch._foreach_div(grads, d)
+        torch._foreach_mul_(clipped, self.clip)
+        return clipped
+
+    def _update(self, group: str, count: int, p: List[torch.Tensor], g: List[torch.Tensor],
+                mu: List[torch.Tensor], nu: List[torch.Tensor]) -> None:
+        """The AdamW update of step ``count`` on one group's tensors, in place."""
         f = np.float32
         bc1 = float(f(1) - f(self.b1) ** f(count))
         bc2 = float(f(1) - f(self.b2) ** f(count))
-        for group in GROUPS:
-            names = self.groups[group]
-            if not names:
-                continue
-            p = [self.params[n] for n in names]
-            g = [grads[n] for n in names]
-            mu = [self.mu[n] for n in names]
-            nu = [self.nu[n] for n in names]
-            # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
-            torch._foreach_mul_(mu, self.b1)
-            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.b1))
-            torch._foreach_mul_(nu, self.b2)
-            sq = torch._foreach_mul(g, g)
-            torch._foreach_mul_(sq, 1 - self.b2)
-            torch._foreach_add_(nu, sq)
-            del sq
-            denom = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, self.eps)
-            upd = torch._foreach_div(mu, bc1)
-            torch._foreach_div_(upd, denom)
-            del denom
-            torch._foreach_add_(upd, torch._foreach_mul(p, self.weight_decay))
-            torch._foreach_mul_(upd, -self.lr(group, self.count))
-            torch._foreach_add_(p, upd)
-        self.count = count
-        return norm
+        # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.b1))
+        torch._foreach_mul_(nu, self.b2)
+        sq = torch._foreach_mul(g, g)
+        torch._foreach_mul_(sq, 1 - self.b2)
+        torch._foreach_add_(nu, sq)
+        del sq
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, denom)
+        del denom
+        torch._foreach_add_(upd, torch._foreach_mul(p, self.weight_decay))
+        torch._foreach_mul_(upd, -self.lr(group, count - 1))
+        torch._foreach_add_(p, upd)
+
+    # the layout of the gradients and of the state: by parameter name here;
+    # by group, this rank's slice, under ZeRO-1 (Zero1AdamW3)
+    def local_grads(self) -> Dict[str, Optional[torch.Tensor]]:
+        """Each parameter's ``.grad`` (None where it has none)."""
+        return {n: p.grad for n, p in self.params.items()}
+
+    def new_accumulator(self) -> Dict[str, torch.Tensor]:
+        """Zeros in the layout of ``local_grads`` (every parameter's)."""
+        return {n: torch.zeros_like(p) for n, p in self.params.items()}
+
+    def full_layout(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Tensors of this optimizer's layout in the one-device layout (by
+        parameter name, full shapes): the same here."""
+        return tensors
+
+    def local_layout(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The inverse of ``full_layout``."""
+        return tensors
 
     def state_dict(self) -> dict:
         return {
@@ -184,6 +215,128 @@ class AdamW3:
         self.count = int(state["count"])
 
 
+class Zero1AdamW3(AdamW3):
+    """``AdamW3`` with its state sharded over the ranks of the process group
+    (ZeRO-1, the JAX package's ``make_zero1_dp_train_step``). Each group's
+    parameters, flattened in order and zero-padded to a multiple of the world
+    size N, fall into N contiguous slices; rank r keeps the moments of slice
+    r only, and under ``MultiSteps`` the running mean of its gradients too.
+
+    ``step()`` takes the gradients averaged over the ranks (every rank holds
+    them, as after the JAX step's ``pmean``), cuts this rank's slices, clips
+    them by the global norm, whose square is the sum over the ranks of each
+    rank's slices' squared norms, the frozen encoder's included
+    (``_shard_global_clip``), updates its slices and reassembles each group's
+    parameters by an all-gather. AdamW is elementwise, so the result is the
+    replicated update's but for the norm's rounding. ``state_dict`` gathers
+    the moments to full parameter shapes (the one-device layout: a one-device
+    run restores it) and is a collective that every rank calls;
+    ``load_state_dict`` takes that layout and keeps this rank's slices."""
+
+    @functools.cached_property
+    def slices(self) -> Dict[str, Tuple[int, int]]:
+        """Per group, (first, end) of this rank's slice of the flat group."""
+        n, r = parallel.world_size(), parallel.rank()
+        out = {}
+        for group, names in self.groups.items():
+            per = -(-sum(self.params[k].numel() for k in names) // n)
+            out[group] = (r * per, (r + 1) * per)
+        return out
+
+    def _new_moments(self) -> Dict[str, torch.Tensor]:
+        return {g: self._zeros(g) for g in GROUPS}
+
+    def _zeros(self, group: str) -> torch.Tensor:
+        first, end = self.slices[group]
+        device = next(iter(self.params.values())).device
+        return torch.zeros(end - first, device=device)
+
+    def _local(self, group: str, tensors: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        """This rank's slice of ``group``'s tensors (by parameter name; None
+        counts as zeros) flattened in order, zero past the group's end."""
+        first, end = self.slices[group]
+        out = self._zeros(group)
+        offset = 0
+        for name in self.groups[group]:
+            size = self.params[name].numel()
+            a, b = max(first, offset), min(end, offset + size)
+            if a < b and tensors.get(name) is not None:
+                out[a - first:b - first].copy_(tensors[name].reshape(-1)[a - offset:b - offset])
+            offset += size
+        return out
+
+    def _full(self, group: str, local: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The ranks' slices of ``group`` gathered, by parameter name, in
+        full shapes."""
+        flat = parallel.all_gather_flat(local)
+        out, offset = {}, 0
+        for name in self.groups[group]:
+            p = self.params[name]
+            out[name] = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        return out
+
+    @torch.no_grad()
+    def step(self, grads: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """One update from ``grads`` (by group, this rank's slices, as
+        ``local_grads`` gives them), or from each parameter's ``.grad``.
+        Returns the global gradient norm (before the clip)."""
+        if grads is None:
+            grads = self.local_grads()
+        sq = torch.stack([g.square().sum() for g in grads.values()]).sum()
+        parallel.all_reduce_sum_([sq])
+        norm = sq.sqrt()
+        grads = dict(zip(grads, self._clipped(list(grads.values()), norm)))
+        count = self.count + 1
+        for group in GROUPS:
+            if not self.groups[group]:
+                continue
+            local = self._local(group, self.params)
+            self._update(group, count, [local], [grads[group]], [self.mu[group]], [self.nu[group]])
+            for name, full in self._full(group, local).items():
+                self.params[name].copy_(full)
+        self.count = count
+        return norm
+
+    def local_grads(self) -> Dict[str, torch.Tensor]:
+        """This rank's slice of every group's gradients (the frozen group's
+        too: the clip counts them)."""
+        grads = {n: p.grad for n, p in self.params.items()}
+        return {g: self._local(g, grads) for g in self.groups}
+
+    def new_accumulator(self) -> Dict[str, torch.Tensor]:
+        return {g: self._zeros(g) for g in self.groups}
+
+    def full_layout(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Slices by group -> full tensors by parameter name (a collective)."""
+        out: Dict[str, torch.Tensor] = {}
+        for group, local in tensors.items():
+            out.update(self._full(group, local))
+        return out
+
+    def local_layout(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Full tensors by parameter name -> this rank's slice of each group
+        (of the groups whose tensors ``tensors`` holds)."""
+        return {g: self._local(g, tensors) for g, names in self.groups.items() if names and names[0] in tensors}
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.full_layout(self.mu), "nu": self.full_layout(self.nu),
+                "groups": {g: list(n) for g, n in self.groups.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        _check_accumulation(state, 1)
+        if state["groups"] != self.groups:
+            raise ValueError("optimizer-state structure mismatch: the checkpoint was saved with other "
+                             "parameter groups (freeze, model config)")
+        for key in ("mu", "nu"):
+            for n, t in state[key].items():
+                if t.shape != self.params[n].shape:
+                    raise ValueError(f"optimizer state {key}[{n}] {tuple(t.shape)} does not fit the parameter")
+            for group, local in self.local_layout(state[key]).items():
+                getattr(self, key)[group].copy_(local)
+        self.count = int(state["count"])
+
+
 class MultiSteps:
     """Gradient accumulation over ``k`` micro-steps around an ``AdamW3``, as
     ``optax.MultiSteps`` (the JAX package's ``accumulate_grad_batches``):
@@ -200,7 +353,7 @@ class MultiSteps:
         self.inner = inner
         self.k = k
         self.mini_step = 0
-        self.acc = {n: torch.zeros_like(p) for n, p in inner.params.items()}
+        self.acc = inner.new_accumulator()
 
     @property
     def count(self) -> int:
@@ -218,11 +371,11 @@ class MultiSteps:
         # g with weight 1 / (n + 1); a missing gradient counts as zero, a
         # lerp towards which is a scaling
         w = 1.0 / (self.mini_step + 1)
-        with_grad = [n for n, p in self.inner.params.items() if p.grad is not None]
-        without = [self.acc[n] for n, p in self.inner.params.items() if p.grad is None]
+        grads = self.inner.local_grads()
+        with_grad = [k for k, g in grads.items() if g is not None]
+        without = [self.acc[k] for k, g in grads.items() if g is None]
         if with_grad:
-            torch._foreach_lerp_([self.acc[n] for n in with_grad],
-                                 [self.inner.params[n].grad for n in with_grad], w)
+            torch._foreach_lerp_([self.acc[k] for k in with_grad], [grads[k] for k in with_grad], w)
         if without:
             torch._foreach_mul_(without, 1.0 - w)
         if self.mini_step < self.k - 1:
@@ -235,18 +388,20 @@ class MultiSteps:
 
     def state_dict(self) -> dict:
         """The inner optimizer's state, k, the micro-step count and, in the
-        middle of an accumulation only, the running mean (zero otherwise)."""
+        middle of an accumulation only, the running mean (zero otherwise), in
+        the one-device layout (under ZeRO-1 a collective: every rank calls it)."""
         return {"inner": self.inner.state_dict(), "accumulate_grad_batches": self.k, "mini_step": self.mini_step,
-                "acc": self.acc if self.mini_step else None}
+                "acc": self.inner.full_layout(self.acc) if self.mini_step else None}
 
     def load_state_dict(self, state: dict) -> None:
         _check_accumulation(state, self.k)
         self.inner.load_state_dict(state["inner"])
-        for n, a in self.acc.items():
-            if state["acc"] is None:
+        acc = None if state["acc"] is None else self.inner.local_layout(state["acc"])
+        for k, a in self.acc.items():
+            if acc is None:
                 a.zero_()
             else:
-                a.copy_(state["acc"][n])
+                a.copy_(acc[k])
         self.mini_step = int(state["mini_step"])
 
 

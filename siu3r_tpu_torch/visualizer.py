@@ -30,6 +30,26 @@ import numpy as np
 from siu3r_tpu_torch.config import VisualizerCfg
 
 
+def eval_step_arrays(out, render, qc=None, m2f=None) -> dict:
+    """What ``Visualizer.add_eval_step`` draws from one eval step's outputs,
+    on the host, each with the batch leading: the rendered ``color`` and
+    ``depth``, the context views' panoptic map ``context_seg`` and, with
+    ``qc`` and ``m2f``, the lifted label maps ``sem_ids`` and ``ins_ids``
+    (threshold 0.3) and the panoptic segments ``seg_infos`` (a list). The
+    lift runs where ``qc`` is (about 0.5 GB an item at the full width)."""
+    arrays = {"color": render.color.cpu().numpy(), "depth": render.depth.cpu().numpy(),
+              "context_seg": out.post["segmentation"].cpu().numpy()}
+    if qc is not None:
+        from siu3r_tpu_torch.models.mask2former.postprocess import segments_info
+        from siu3r_tpu_torch.pipeline import lift_rendered_qc
+
+        arrays["seg_infos"] = segments_info(out.post, m2f.label_ids_to_fuse)
+        sem_ids, ins_ids = lift_rendered_qc(qc, out.post["query_scores"], threshold=0.3,
+                                            num_queries=m2f.num_queries, stuff_ids=tuple(m2f.label_ids_to_fuse))
+        arrays["sem_ids"], arrays["ins_ids"] = sem_ids.cpu().numpy(), ins_ids.cpu().numpy()
+    return arrays
+
+
 def pack_segment_rgb(sem: np.ndarray, ins: np.ndarray) -> np.ndarray:
     """segment_id = 1000*sem + inst -> RGB little-endian base-256
     (reference visualizer.py:486-503)."""
@@ -249,36 +269,31 @@ class Visualizer:
         depths, the lifted (threshold 0.3) and ground-truth label maps and the
         panoptic segments; without them (the training loop's visualisation),
         none of these."""
-        color, depth = render.color.cpu().numpy(), render.depth.cpu().numpy()
-        context_seg = out.post["segmentation"].cpu().numpy()
+        self.add_eval_arrays(save_dir, batch, eval_step_arrays(out, render, qc, m2f), n_real)
+
+    def add_eval_arrays(self, save_dir: str, batch, arrays: dict, n_real: Optional[int] = None) -> None:
+        """``add_eval_step`` from the host arrays ``eval_step_arrays`` gives
+        (gathered from the ranks by the data-parallel sweep)."""
         n_real = batch["context_views_images"].shape[0] if n_real is None else n_real
         scenes = batch.get("scene_names")
-        if qc is not None:
-            from siu3r_tpu_torch.models.mask2former.postprocess import segments_info
-            from siu3r_tpu_torch.pipeline import lift_rendered_qc
-
-            infos = segments_info(out.post, m2f.label_ids_to_fuse)
-            sem_ids, ins_ids = lift_rendered_qc(qc, out.post["query_scores"], threshold=0.3,
-                                                num_queries=m2f.num_queries, stuff_ids=tuple(m2f.label_ids_to_fuse))
-            sem_ids, ins_ids = sem_ids.cpu().numpy(), ins_ids.cpu().numpy()
         for bi in range(n_real):
             ctx_ids, tgt_ids = batch["context_views_id"][bi], batch["target_views_id"][bi]
             seg = {}
-            if qc is not None:
+            if "sem_ids" in arrays:
                 ctx_pos = [int(np.where(tgt_ids == c)[0][0]) for c in ctx_ids]
                 sem_gt, ins_gt = gt_maps(batch["target_gt_masks"][bi], batch["target_gt_classes"][bi],
                                          batch["target_gt_valid"][bi])
-                sem, ins = sem_ids[bi], ins_ids[bi]
+                sem, ins = arrays["sem_ids"][bi], arrays["ins_ids"][bi]
                 seg = dict(target_depths=batch["target_views_depths"][bi], context_sem_pred=sem[ctx_pos],
                            context_ins_pred=ins[ctx_pos], context_sem_gt=sem_gt[ctx_pos],
                            context_ins_gt=ins_gt[ctx_pos], target_sem_pred=sem, target_ins_pred=ins,
-                           target_sem_gt=sem_gt, target_ins_gt=ins_gt, seg_infos=infos[bi])
+                           target_sem_gt=sem_gt, target_ins_gt=ins_gt, seg_infos=arrays["seg_infos"][bi])
             self.add_scene(
                 save_dir, scenes[bi] if scenes is not None else f"item{bi}", list(map(int, ctx_ids)),
-                list(map(int, tgt_ids)), color[bi], batch["target_views_images"][bi], render_depth=depth[bi],
-                context_images=batch["context_views_images"][bi], context_seg_map=context_seg[bi],
-                gt_masks=batch["gt_masks"][bi], gt_classes=batch["gt_classes"][bi], gt_valid=batch["gt_valid"][bi],
-                **seg,
+                list(map(int, tgt_ids)), arrays["color"][bi], batch["target_views_images"][bi],
+                render_depth=arrays["depth"][bi], context_images=batch["context_views_images"][bi],
+                context_seg_map=arrays["context_seg"][bi], gt_masks=batch["gt_masks"][bi],
+                gt_classes=batch["gt_classes"][bi], gt_valid=batch["gt_valid"][bi], **seg,
             )
 
     def write_files(self, max_workers: int = 8) -> None:
