@@ -6,7 +6,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. environment: versions, the card's name and power limit, TF32 off;
   2. build: nvcc builds the CUDA kernels from siu3r_tpu_torch/csrc;
   3. kernels: the attention kernel's registers (ptxas) and, in its SASS,
-     tensor-core TF32 products and asynchronous copies; each kernel against
+     tensor-core TF32 products and asynchronous copies (kernel 1b: bf16
+     products, ldmatrix and asynchronous copies); each kernel against
      its plain PyTorch version at the main path's shapes and at edge cases,
      with times, bounds (attention at the 3xTF32 tensor-core rate, with the
      fp32 figure beside it), blocks per launch and, for attention, one
@@ -26,16 +27,23 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. slice check: a small config run on the GPU (kernels) against the same
      weights on the CPU (plain versions): the forward, then the eval step's
      render against the CPU render of the step's own Gaussians, with target
-     cameras framing the scene;
+     cameras framing the scene; bf16_slice: the same in bf16
+     (``model.dtype: bfloat16``) at 2 and 3 views, each float output within
+     half the CPU's own bf16 - fp32 difference;
   5. forward: the full-width ViT-L two-view forward at 256x256 from a seeded
      random init, with the launch counts of one forward checked against the
      model's attention and deformable-attention call sites (every MSDA
      launch the staged kernel) and no host sync inside it, then timed;
+     bf16_forward: the same weights computing in bf16 (kernel 1b, the bf16
+     RoPE attention, in place of kernel 1), against the fp32 forward with
+     the JAX package's bounds (means 5%, labels 90%), timed beside it, the
+     model kernels held against their plain versions on its own inputs;
   6. eval step: ``Pipeline.eval_step`` at full width (the forward, then RGB,
      depth and query-class rendering of 6 target views), with its launch
      counts checked, no host sync inside it, then timed; the binning and
      raster kernels held against their plain versions on the step's own
-     inputs, with times, bounds and tile occupancy;
+     inputs, with times, bounds and tile occupancy; bf16_eval: the same
+     step in bf16 on the same weights, as bf16_forward;
   8. train step (run before the CLIs): the small config's loss terms and
      render-loss gradient on the GPU against the CPU, then
      ``Pipeline.train_step`` at full width (B = 1, 2 + 4 views, 48 objects),
@@ -54,7 +62,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      every mode, with no blank RGB or depth frame.
   9. multi_slice: the small config at 3 views on the GPU against the CPU,
      the forward and the eval step's render, as phase 4;
- 10. multi_forward: the full-width 8-view forward of
+ 10. multi_forward (then bf16_multi_forward, its bf16 twin on the same
+     weights, as bf16_forward): the full-width 8-view forward of
      configs/scannet_multi.yaml (the shared-bank multi-view backbone) at
      256x256, its launch counts (the bank's masked cross-attention takes the
      plain path, so 48 RoPE attention launches), no host sync, finite
@@ -107,7 +116,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  21. evaluate: ``python -m siu3r_tpu_torch.cli.evaluate`` (its own process)
      on phase 20's directory gives its results.json value for value;
  22. train_cli: ``python -m siu3r_tpu_torch.cli.train --config
-     configs/scannet.yaml`` (its own process) at full width and B = 3 with
+     configs/scannet.yaml`` (its own process) at full width (the depth cut
+     to 6 encoder and 3 + 3 decoder blocks) and B = 3 with
      gradient accumulation k = 2 for 4 steps from a training state of biased
      weights W (finite records, train_viz PNGs, one checkpoint whose heads
      moved from W by more than their decay), then ``--resume`` of it for one
@@ -124,7 +134,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      sweep's files, written once, its results within phase 20's limits,
      each rank's launches;
  24. dp_train (after train_cli): two ranks over gloo, configs/scannet.yaml
-     at full width, a global batch of 2, two data-parallel steps with
+     at full width with the depth cut to 6 encoder and 3 + 3 decoder
+     blocks (as in phases 25 to 27), a global batch of 2, two data-parallel steps with
      injected sample points, held against a one-process oracle on the card;
      each rank's launches, step ms, peak memory, all-reduce bytes and ms;
  25. zero1_train: two ranks, configs/scannet_multi.yaml at full width (8 +
@@ -155,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -184,11 +196,26 @@ PEAK_FP32_FLOPS = 67e12
 # products for each fp32 product
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+# dense bf16 on the tensor cores (kernel 1b's products)
+PEAK_BF16_FLOPS = 989e12
 # int32 ALU: 64 lanes per SM, half the fp32 lanes, and one operation a lane
 # and cycle where the fp32 peak counts an FMA as two (Hopper architecture
 # white paper): 132 SMs x 64 x 1.98 GHz
 PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
 ATTN_ATOL = 2e-5
+# kernel 1b against its bf16 plain version: one bf16 ulp of the plain
+# version's value elementwise, and at least 2^-8 (the ulp of [1/2, 1));
+# 2^-8 x max(1, |o|) falls short of an ulp above 1, where the ulp is 2^-7 x
+# 2^floor(log2 |o|). tests/test_torch_bf16.py holds the plain version to the
+# JAX kernel at the same tolerance
+ATTN_BF16_ULP = 2.0**-8
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at ``x`` (bf16), at least ATTN_BF16_ULP, as fp32."""
+    a = x.abs()
+    up = (a.view(torch.int16) + 1).view(torch.bfloat16)
+    return (up.float() - a.float()).clamp(min=ATTN_BF16_ULP)
 MSDA_ATOL = 1e-5
 # raster: the kernel's whole-tile exit leaves out contributions below
 # transmittance 1e-4, and it sums in another order; scaled by the largest
@@ -211,13 +238,31 @@ MIN_COVERAGE = 0.1
 # the render's backward, kernel 6, does real work
 MIN_SWEPT = 4.0
 LABEL_AGREEMENT = 0.999
+# the small config in bf16 on the GPU against the CPU (tests/test_torch_bf16.py
+# holds the port against JAX on the CPU with these bounds: means and labels):
+# Gaussian means within a mean relative error of BF16_MEANS_REL, labels equal
+# on BF16_LABELS. The GPU and the CPU sum every bf16 product in another
+# order, and each rounding of such a sum to bf16 can turn, so two correct
+# bf16 runs differ by bf16 noise of their own; each Gaussian field's L2
+# difference is held to at most BF16_SLICE_FRACTION of the CPU's own bf16 -
+# fp32 difference (0.46 to 0.65 at 2 and 3 views on an H100; Mask2Former's
+# logits, fp32 layers on those features, 0.72 to 0.99, are logged and held
+# through the labels)
+BF16_MEANS_REL = 1e-3
+BF16_SLICE_FRACTION = 1.0
+BF16_GAUSSIAN_KEYS = ("means", "covariances", "harmonics", "opacities", "scales", "rotations")
+BF16_LABELS = 0.99
+# a full-width bf16 forward against the fp32 forward on the same weights: the
+# JAX package's own bounds on its bf16 path (tests/test_model.py)
+ORACLE_MEANS_REL, ORACLE_LABELS = 0.05, 0.9
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False) -> tuple[float, float, dict | None]:
+def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False,
+            events: bool = True) -> tuple[float, float | None, dict | None]:
     """(device ms, elapsed ms, part ms) per call over ``iters`` back-to-back
     calls.
 
@@ -226,7 +271,9 @@ def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False) -> t
     name of ``parts`` to the share of the device entries whose name contains
     one of its substrings (None without ``parts``); elapsed ms comes from
     CUDA events around the loop and includes the gaps where the card waits
-    for the host to launch (for a small kernel, the wrapper's cost).
+    for the host to launch (for a small kernel, the wrapper's cost); without
+    ``events`` (a plain version or a yardstick, whose device time alone is
+    read) it is not taken, and None.
 
     A short trace can come back empty, and one of many launches cut short
     (CUPTI delivers its records late, or drops them): an empty trace is
@@ -234,20 +281,24 @@ def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False) -> t
     a few launches a call) a trace counts only if every device entry ran a
     multiple of ``iters`` times (each call launches the same kernels), or
     if its entries' counts equal the previous trace's (launches that vary
-    from call to call). A plain version's trace of thousands of launches is
-    taken as it comes: its time may be short of the truth."""
+    from call to call); after five short ones, the last is taken with each
+    entry's mean time a launch if no entry lost a tenth of its records. A
+    plain version's trace of thousands of launches is taken as it comes:
+    its time may be short of the truth."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    elapsed = start.elapsed_time(end) / iters
+    elapsed = None
+    if events:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        elapsed = start.elapsed_time(end) / iters
     previous = None
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -264,6 +315,17 @@ def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False) -> t
                 name: sum(e.self_device_time_total for e in rows if any(x in e.key for x in subs)) / 1e3 / iters
                 for name, subs in parts.items()}
             return device_us / 1e3 / iters, elapsed, part_ms
+    # five traces in a row cut short: each entry's mean time a launch times
+    # its launches a call (its count over iters, rounded), where no entry lost
+    # more than a tenth of its records
+    per_call = {e.key: round(e.count / iters) for e in rows}
+    if device_us > 0 and all(per_call[e.key] >= 1 and e.count >= 0.9 * per_call[e.key] * iters for e in rows):
+        short = [(e.key[:40], e.count) for e in rows if e.count % iters]
+        log("time", f"five traces of {iters} calls came back short, the last by {short}: mean times a launch used")
+        mean_ms = lambda e: e.self_device_time_total / e.count * per_call[e.key] / 1e3
+        part_ms = None if parts is None else {
+            name: sum(mean_ms(e) for e in rows if any(x in e.key for x in subs)) for name, subs in parts.items()}
+        return sum(mean_ms(e) for e in rows), elapsed, part_ms
     raise RuntimeError(f"the profiler recorded no whole trace of {iters} calls: "
                        f"{[(e.key[:60], e.count) for e in rows if e.count % iters]} (of {len(rows)} entries)")
 
@@ -319,26 +381,26 @@ def _positions(b: int, n: int, gen) -> torch.Tensor:
     return torch.randint(0, 17, (b, n, 2), device="cuda", generator=gen)
 
 
-def _attn_inputs(case, gen, cross: bool):
-    """q/k/v in the model's layouts: self-attention takes strided views of one
-    packed projection; cross-attention (``cross``, or Nq != Nk) takes three
-    separate projections, each a [B, N, H, D] transposed view, with key
-    positions in a tensor of their own."""
+def _attn_inputs(case, gen, cross: bool, dtype: torch.dtype = torch.float32):
+    """q/k/v in ``dtype`` in the model's layouts: self-attention takes strided
+    views of one packed projection; cross-attention (``cross``, or Nq != Nk)
+    takes three separate projections, each a [B, N, H, D] transposed view,
+    with key positions in a tensor of their own. RoPE tables in ``dtype``."""
     b, h, nq, nk, d, rope, mask_kind = case
     dev = "cuda"
     if nq == nk and not cross:
-        qkv = torch.randn(b, nq, 3, h, d, device=dev, generator=gen).permute(2, 0, 3, 1, 4)
+        qkv = torch.randn(b, nq, 3, h, d, device=dev, generator=gen, dtype=dtype).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
     else:
-        q = torch.randn(b, nq, h, d, device=dev, generator=gen).transpose(1, 2)
-        k = torch.randn(b, nk, h, d, device=dev, generator=gen).transpose(1, 2)
-        v = torch.randn(b, nk, h, d, device=dev, generator=gen).transpose(1, 2)
+        q = torch.randn(b, nq, h, d, device=dev, generator=gen, dtype=dtype).transpose(1, 2)
+        k = torch.randn(b, nk, h, d, device=dev, generator=gen, dtype=dtype).transpose(1, 2)
+        v = torch.randn(b, nk, h, d, device=dev, generator=gen, dtype=dtype).transpose(1, 2)
     qrope = krope = kv_mask = None
     if rope:
         from siu3r_tpu_torch.ops.rope import rope2d_cos_sin
 
-        qrope = rope2d_cos_sin(_positions(b, nq, gen), d)
-        krope = rope2d_cos_sin(_positions(b, nk, gen), d)
+        qrope = rope2d_cos_sin(_positions(b, nq, gen), d, dtype=dtype)
+        krope = rope2d_cos_sin(_positions(b, nk, gen), d, dtype=dtype)
     if mask_kind == "one_live_key":
         kv_mask = torch.rand(b, nk, device=dev, generator=gen) > 0.5
         kv_mask[0] = False
@@ -350,59 +412,74 @@ def _attn_inputs(case, gen, cross: bool):
     return q, k, v, qrope, krope, kv_mask
 
 
-def _attn_cost(case) -> tuple[float, float, float]:
-    """Bytes (q, k, v, the tables and the mask in; out), the two products'
-    flops and the rotation's."""
+def _attn_cost(case, elem: int = 4) -> tuple[float, float, float]:
+    """Bytes (q, k, v, the tables and the mask in; out; ``elem`` bytes an
+    element), the two products' flops and the rotation's."""
     b, h, nq, nk, d, rope, mask_kind = case
-    nbytes = 4 * b * h * d * (2 * nq + 2 * nk)
+    nbytes = elem * b * h * d * (2 * nq + 2 * nk)
     if rope:
-        nbytes += 4 * 2 * b * d * (nq + nk)  # cos/sin tables
+        nbytes += elem * 2 * b * d * (nq + nk)  # cos/sin tables
     if mask_kind:
         nbytes += b * nk
     return nbytes, 4 * b * h * nq * nk * d, 6 * b * h * (nq + nk) * d if rope else 0
 
 
-def _attn_bound(case) -> dict:
+def _attn_bound(case, dtype: torch.dtype = torch.float32) -> dict:
     """The least time for the function, the products at the 3xTF32 tensor-core
-    rate (what the kernel's arithmetic needs) and the rotation at the fp32
-    rate; beside it the same with the products at the fp32 rate."""
-    nbytes, products, rotation = _attn_cost(case)
+    rate in fp32 (what the kernel's arithmetic needs) or the dense bf16 rate
+    in bf16 (kernel 1b), and the rotation at the fp32 rate; beside it the
+    same with the products at the fp32 rate."""
+    bf16 = dtype == torch.bfloat16
+    nbytes, products, rotation = _attn_cost(case, 2 if bf16 else 4)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = (products / PEAK_3XTF32_FLOPS + rotation / PEAK_FP32_FLOPS) * 1e3
+    ops_ms = (products / (PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS) + rotation / PEAK_FP32_FLOPS) * 1e3
     b_ms, b_by = larger(bytes_ms, ops_ms)
     return dict(bound_ms=b_ms, bound_by=b_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
                 bound_fp32_ms=bound(nbytes, products + rotation)[0])
 
 
-def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None):
+def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None, dtype=torch.float32):
     """The attention kernel against its plain version on ``case``'s random
-    inputs, or on ``inputs`` (q, k, v, qrope, krope, kv_mask) taken from a
-    run of the model (``case`` then only describes their shapes)."""
+    inputs in ``dtype``, or on ``inputs`` (q, k, v, qrope, krope, kv_mask)
+    taken from a run of the model (``case`` then only describes their
+    shapes, and q's dtype is the dtype). fp32 within ATTN_ATOL; bf16 (kernel
+    1b) within one bf16 ulp of the plain version's output."""
     from siu3r_tpu_torch.kernels.flash_attention import flash_attn, flash_attn_plain, launch_config
     from siu3r_tpu_torch.ops.rope import rope2d_from_cos_sin
 
-    q, k, v, qrope, krope, kv_mask = inputs or _attn_inputs(case, gen, cross)
+    q, k, v, qrope, krope, kv_mask = inputs or _attn_inputs(case, gen, cross, dtype)
+    dtype = q.dtype
     scale = scale or case[4] ** -0.5
     kern = lambda: flash_attn(q, k, v, scale, qrope=qrope, krope=krope, kv_mask=kv_mask)
     plain = lambda: flash_attn_plain(q, k, v, scale, qrope, krope, kv_mask)
     out = kern()
     ref = plain()
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    if not math.isfinite(err) or err > ATTN_ATOL:
+    if out.dtype != dtype:
+        raise AssertionError(f"attention {name} {case}: output {out.dtype} for {dtype} inputs")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if dtype == torch.bfloat16:
+        excess = (diff - bf16_ulp(ref)).max().item()
+        if not math.isfinite(err) or excess > 0:
+            raise AssertionError(f"attention {name} {case} bf16: max_abs_err {err}, beyond one bf16 ulp by {excess}")
+    elif not math.isfinite(err) or err > ATTN_ATOL:
         raise AssertionError(f"attention {name} {case}: max_abs_err {err} > {ATTN_ATOL}")
     ms, elapsed, _ = time_ms(kern, iters, whole=True)
-    plain_ms = time_ms(plain, max(3, iters // 4))[0]
+    plain_ms = time_ms(plain, max(3, iters // 4), events=False)[0]
     lib_ms = None
     if kv_mask is None:
         qr = rope2d_from_cos_sin(q, *qrope) if qrope is not None else q
         kr = rope2d_from_cos_sin(k, *krope) if krope is not None else k
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters, whole=True)[0]
-    bnd = _attn_bound(case)
-    blocks, threads, smem = launch_config(*case[:3], case[4], case[5])
-    log("kernel", f"{name} {case[:5]} rope={case[5]} mask={case[6]}: max_abs_err {err:.3g} "
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters, whole=True,
+                         events=False)[0]
+    bnd = _attn_bound(case, dtype)
+    blocks, threads, smem = launch_config(*case[:3], case[4], case[5], dtype)
+    bf16 = dtype == torch.bfloat16
+    log("kernel", f"{name} {case[:5]} rope={case[5]} mask={case[6]}{' bf16' if bf16 else ''}: max_abs_err "
+                  f"{err:.3g} (bit-equal {(diff == 0).float().mean().item():.4f}) "
                   f"ms {ms:.5f} (elapsed {elapsed:.5f}) plain_ms {plain_ms:.5f} library_ms {lib_ms} "
-                  f"bound_ms {bnd['bound_ms']:.5f} ({bnd['bound_by']}, 3xTF32; fp32 SIMT "
+                  f"bound_ms {bnd['bound_ms']:.5f} ({bnd['bound_by']}, {'bf16' if bf16 else '3xTF32'}; fp32 SIMT "
                   f"{bnd['bound_fp32_ms']:.5f}); {blocks} blocks of {threads} threads, {smem} B shared")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, blocks=blocks, **bnd)
 
@@ -444,12 +521,14 @@ def _msda_cost(case, loc) -> tuple[float, float]:
 def check_msda(name, case, iters, gen, inputs=None):
     """The MSDA kernel against its plain version on one case's random inputs,
     or on ``inputs`` (value, locations, weights) taken from a run of the
-    model; fails unless the kernel that ran is the one ``MSDA_VARIANT``
-    expects for the case."""
+    model, in fp32: the kernel is fp32, and ``msda`` casts a bf16 value and
+    bf16 weights to fp32 at its boundary, so fp32 is what the kernel took;
+    fails unless the kernel that ran is the one ``MSDA_VARIANT`` expects for
+    the case."""
     from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.kernels.msda import msda, msda_plain
 
-    value, loc, aw = inputs or _msda_inputs(case, gen)
+    value, loc, aw = (t.float() for t in inputs) if inputs else _msda_inputs(case, gen)
     shapes = case[5]
     kern = lambda: msda(value, shapes, loc, aw)
     plain = lambda: msda_plain(value, shapes, loc, aw)
@@ -465,7 +544,7 @@ def check_msda(name, case, iters, gen, inputs=None):
     if not math.isfinite(err) or err > MSDA_ATOL:
         raise AssertionError(f"msda {name}: max_abs_err {err} > {MSDA_ATOL}")
     ms, elapsed, _ = time_ms(kern, iters, whole=True)
-    plain_ms = time_ms(plain, max(3, iters // 4))[0]
+    plain_ms = time_ms(plain, max(3, iters // 4), events=False)[0]
     nbytes, flops = _msda_cost(case, loc)
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
     b_ms, b_by = larger(bytes_ms, ops_ms)
@@ -502,6 +581,26 @@ ATTN_EDGE = {
     # the refer train step's language layers: 8 words against 100 queries at B = 3
     "language_b3": (3, 8, 8, 100, 32, False, None),
 }
+# kernel 1b (bf16 q, k, v; RoPE, no mask) at the two-view backbone's shapes,
+# the calls one bf16 forward makes at each, and whether q and k/v come from
+# separate projections; then edge cases
+ATTN_BF16_MAIN = {
+    "encoder": ((2, 16, 257, 257, 64, True, None), 24, False),
+    "decoder_self": ((1, 12, 257, 257, 64, True, None), 24, False),
+    "decoder_cross": ((1, 12, 257, 257, 64, True, None), 24, True),
+}
+ATTN_BF16_EDGE = {
+    "nq_ne_nk": (1, 4, 100, 257, 64, True, None),
+    "nk65_d32": (1, 3, 70, 65, 32, True, None),
+    "nk8": (1, 4, 33, 8, 64, True, None),
+    "nq17_d32": (2, 4, 17, 100, 32, True, None),
+    "one_query_one_key": (1, 2, 1, 1, 64, True, None),
+    "one_key_d32": (2, 3, 70, 1, 32, True, None),
+    # B x H far below the SM count: the 2-warp blocks
+    "few_heads": (1, 2, 257, 257, 64, True, None),
+    # the 8-view encoder's batch of views: 4-warp blocks
+    "eight_views": (8, 16, 257, 257, 64, True, None),
+}
 # (B, Lq, H, D, P, levels, loc lo, loc hi, integer points)
 MSDA_MAIN = {
     "adapter": ((2, 1344, 16, 64, 4, ((16, 16),), -0.05, 1.05, False), 6),
@@ -525,6 +624,7 @@ MSDA_VARIANT = {name: "msda.global" for name in MSDA_EDGE if name.startswith("gl
 
 
 ATTN_KERNEL = "flash_attn_fwd_kernel"
+ATTN_BF16_KERNEL = "flash_attn_rope_bf16_kernel"
 
 
 def log_ptxas(phase: str, kernel: str) -> None:
@@ -565,13 +665,30 @@ def check_attention_build() -> None:
         log("kernels", f"SASS {body[0][:70]}: {mma} tensor-core TF32 instructions, {copies} async copies")
         if not mma or not copies:
             raise AssertionError(f"{body[0]}: no tensor-core TF32 product ({mma}) or async copy ({copies}) in the SASS")
+    # kernel 1b: bf16 products (HMMA.16816.F32.BF16), V's fragments by
+    # ldmatrix (LDSM), the tiles by cp.async (LDGSTS)
+    log_ptxas("kernels", ATTN_BF16_KERNEL)
+    functions = [f for f in sass.split("Function : ")[1:] if f.startswith("_Z") and ATTN_BF16_KERNEL in f.split()[0]]
+    if len(functions) != 4:
+        raise AssertionError(f"cuobjdump -sass shows {len(functions)} instantiations of {ATTN_BF16_KERNEL}, not 4")
+    for f in functions:
+        body = f.splitlines()
+        mma = sum("HMMA" in x and "BF16" in x for x in body)
+        other_mma = sum(("HMMA" in x or "HGMMA" in x) and "BF16" not in x for x in body)
+        ldsm = sum("LDSM" in x for x in body)
+        copies = sum("LDGSTS" in x for x in body)
+        log("kernels", f"SASS {body[0][:70]}: {mma} bf16 HMMA instructions ({other_mma} other tensor-core), "
+                       f"{ldsm} ldmatrix, {copies} async copies")
+        if not mma or other_mma or not ldsm or not copies:
+            raise AssertionError(f"{body[0]}: bf16 HMMA {mma}, other tensor-core {other_mma}, LDSM {ldsm}, "
+                                 f"LDGSTS {copies} in the SASS")
 
 
 def _model_kernel_totals() -> dict:
     """Per-forward sums of the model kernels' checks, filled by ``_add_check``."""
     zero = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
     return {"flash_attn_rope": dict(zero, bound_fp32_ms=0.0), "flash_attn": dict(zero, bound_fp32_ms=0.0),
-            "msda": dict(zero, library_ms=None)}
+            "msda": dict(zero, library_ms=None), "flash_attn_rope_bf16": dict(zero, bound_fp32_ms=0.0)}
 
 
 def _add_check(per_kernel: dict, kernel: str, res: dict, calls: int) -> None:
@@ -607,9 +724,17 @@ def phase_kernels() -> dict:
         _add_check(per_kernel, "msda", check_msda(name, case, 50, gen), calls)
     for name, case in MSDA_EDGE.items():
         per_kernel["msda"]["err"] = max(per_kernel["msda"]["err"], check_msda(name, case, 20, gen)["err"])
+    bf16 = "flash_attn_rope_bf16"
+    for name, (case, calls, cross) in ATTN_BF16_MAIN.items():
+        _add_check(per_kernel, bf16, check_attention(f"bf16 {name}", case, 50, gen, cross, dtype=torch.bfloat16),
+                   calls)
+    for name, case in ATTN_BF16_EDGE.items():
+        res = check_attention(f"bf16 {name}", case, 20, gen, dtype=torch.bfloat16)
+        per_kernel[bf16]["err"] = max(per_kernel[bf16]["err"], res["err"])
     log_ptxas("kernels", "msda_kernel")
-    log("kernels", "all kernels agree with their plain versions "
-                   f"(attention atol {ATTN_ATOL}, msda atol {MSDA_ATOL}); per forward: " + _totals_text(per_kernel))
+    log("kernels", "all kernels agree with their plain versions (attention atol "
+                   f"{ATTN_ATOL}, kernel 1b one bf16 ulp, msda atol {MSDA_ATOL}); per forward (kernel 1b: per bf16 "
+                   "forward): " + _totals_text(per_kernel))
     return per_kernel
 
 
@@ -671,7 +796,7 @@ def check_bin(name, proj, k, iters) -> dict:
         res.update({f"{p}_ms": ms for p, ms in parts.items()})
         if not all(parts[p] > 0 for p in BIN_KERNELS):
             raise RuntimeError(f"the profiler's trace misses a binning kernel: {parts}")
-        res["plain_ms"] = time_ms(plain, max(3, iters // 4))[0]
+        res["plain_ms"] = time_ms(plain, max(3, iters // 4), events=False)[0]
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops, PEAK_INT32_OPS)
     log("kernel", f"bin {name} views={proj.depth.shape[0]} G={proj.depth.shape[1]} K={k}: exact, "
                   f"mean count {res['mean_count']:.1f}, share at K {res['at_k']:.3f}"
@@ -829,7 +954,7 @@ def check_raster(name, table, counts, params, colors, iters) -> dict:
         nbytes, ops = _raster_cost(table, counts, colors, s, work)
         res["spread"] = _tile_spread(work, counts)
         res["ms"], res["elapsed"], _ = time_ms(kern, iters, whole=True)
-        res["plain_ms"] = time_ms(plain, max(3, iters // 4))[0]
+        res["plain_ms"] = time_ms(plain, max(3, iters // 4), events=False)[0]
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
     log("kernel", f"raster {name} views={table.shape[0]} K={table.shape[-1]} C={colors.shape[-1]}: max_abs_err "
                   f"{err:.3g} (depth {depth_err:.3g}), chunks swept per live tile {res['mean_swept']:.2f}, "
@@ -1033,7 +1158,7 @@ def check_raster_bwd(name, table, counts, params, colors, iters, gen) -> dict:
         nbytes, ops = _raster_bwd_cost(table, counts, params, colors, swept, work)
         res["spread"] = _tile_spread(work, counts)
         res["ms"], res["elapsed"], _ = time_ms(kern, iters, whole=True)
-        res["plain_ms"] = time_ms(plain, max(2, iters // 10))[0]
+        res["plain_ms"] = time_ms(plain, max(2, iters // 10), events=False)[0]
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
     log("kernel", f"raster_bwd {name} views={n} K={k} C={c}: max_abs_err, atol and worst excess per part "
                   + ", ".join(f"{part} {e[0]:.3g}/{e[1]:.3g}/{e[2]:.3g}" for part, e in errs.items())
@@ -1157,9 +1282,10 @@ def phase_autograd() -> None:
         log("autograd", f"{name}: grad_fn {type(outs[0].grad_fn).__name__}, gradients of every input equal "
                         f"the plain version's autograd within {tol} x scale (worst {worst:.3g})")
 
-    q, k, v, qrope, krope, _ = _attn_inputs(ATTN_MAIN["encoder"][0], gen, False)
-    compare("flash_attn_rope", lambda q, k, v: flash_attn(q, k, v, 0.125, qrope, krope),
-            lambda q, k, v: flash_attn_plain(q, k, v, 0.125, qrope, krope), (q, k, v), 1e-4)
+    for dtype in (torch.float32, torch.bfloat16):  # kernel 1, then kernel 1b
+        q, k, v, qrope, krope, _ = _attn_inputs(ATTN_MAIN["encoder"][0], gen, False, dtype)
+        compare(f"flash_attn_rope {dtype}", lambda q, k, v: flash_attn(q, k, v, 0.125, qrope, krope),
+                lambda q, k, v: flash_attn_plain(q, k, v, 0.125, qrope, krope), (q, k, v), 1e-4)
     for name, (case, cross) in (("flash_attn", (ATTN_MAIN["m2f_query_self"][0], False)),
                                 ("flash_attn language", (ATTN_EDGE["language_b3"], True))):
         q, k, v, _, _, _ = _attn_inputs(case, gen, cross)
@@ -1180,9 +1306,10 @@ def phase_autograd() -> None:
 # ---------------------------------------------------------------- phase 4
 
 
-def _small_cfg(num_views: int = 2):
+def _small_cfg(num_views: int = 2, dtype: str = "float32"):
     """A small config whose head dims the kernels take: encoder 512/8 (D=64),
-    decoder 256/4 (D=64), adapter 512/16 (D=32), Mask2Former 64/2 (D=32)."""
+    decoder 256/4 (D=64), adapter 512/16 (D=32), Mask2Former 64/2 (D=32);
+    computing in ``dtype``."""
     from siu3r_tpu_torch.config import CrocoCfg, GaussianHeadCfg, Mask2formerCfg, ModelCfg
 
     return ModelCfg(
@@ -1197,6 +1324,7 @@ def _small_cfg(num_views: int = 2):
         gaussian_head=GaussianHeadCfg(sh_degree=2),
         image_size=(64, 64),
         num_views=num_views,
+        dtype=dtype,
     )
 
 
@@ -1247,16 +1375,20 @@ def _eval_batch(images, intr, targets) -> dict:
     }
 
 
-def _slice_check(phase: str, views: int) -> None:
-    """The small config at ``views`` views on the GPU (kernels) against the
-    same weights on the CPU (plain versions): the forward, then the eval
-    step's render."""
+def _slice_check(phase: str, views: int, dtype: str = "float32") -> None:
+    """The small config at ``views`` views computing in ``dtype`` on the GPU
+    (kernels) against the same weights on the CPU (plain versions): the
+    forward, then the eval step's render. fp32 within SLICE_RTOL /
+    SLICE_ATOL, labels LABEL_AGREEMENT; bf16 the Gaussian means within
+    BF16_MEANS_REL, each Gaussian field within BF16_SLICE_FRACTION of the
+    CPU's own bf16 - fp32 difference (L2), labels BF16_LABELS."""
     from siu3r_tpu_torch.config import PipelineCfg, RootCfg
-    from siu3r_tpu_torch.models.model import SIU3RModel
+    from siu3r_tpu_torch.models.model import SIU3RModel, set_compute_dtype
     from siu3r_tpu_torch.pipeline import Pipeline
     from siu3r_tpu_torch.renderer import render_color_and_qc
 
-    root = RootCfg(pipeline=PipelineCfg(model=_small_cfg(views)))
+    bf16 = dtype == "bfloat16"
+    root = RootCfg(pipeline=PipelineCfg(model=_small_cfg(views, dtype)))
     gpu_pipe = Pipeline(root, device="cuda", seed=7)
     gpu = gpu_pipe.model
     cpu = SIU3RModel(root.pipeline.model, device="cpu", seed=0).eval()
@@ -1267,13 +1399,20 @@ def _slice_check(phase: str, views: int) -> None:
     with torch.inference_mode():
         og = gpu(images.cuda(), intr.cuda(), enable_query_class_logit_lift=True)
         oc = cpu(images, intr, enable_query_class_logit_lift=True)
-    worst = 0.0
+        if bf16:  # the CPU's own bf16 - fp32 difference, the yardstick
+            oc32 = set_compute_dtype(cpu, "float32")(images, intr, enable_query_class_logit_lift=True)
+            set_compute_dtype(cpu, "bfloat16")
+    worst, ratios = 0.0, {}
     for key, a in _floats(og).items():
         b = _floats(oc)[key]
         a = a.cpu().double()
         b = b.double()
         if not torch.isfinite(a).all():
             raise AssertionError(f"{phase}: {key} not finite")
+        if bf16:
+            yard = (b - _floats(oc32)[key].double()).norm().item()
+            ratios[key] = (a - b).norm().item() / yard if yard > 0 else (math.inf if (a != b).any() else 0.0)
+            continue
         excess = ((a - b).abs() - SLICE_RTOL * b.abs()).max().item()
         worst = max(worst, excess)
         if excess > SLICE_ATOL:
@@ -1282,10 +1421,24 @@ def _slice_check(phase: str, views: int) -> None:
         (og.gaussians.semantic_labels.cpu() == oc.gaussians.semantic_labels).float().mean().item(),
         (og.gaussians.instance_labels.cpu() == oc.gaussians.instance_labels).float().mean().item(),
     )
-    if agree < LABEL_AGREEMENT:
-        raise AssertionError(f"{phase}: labels agree on {agree:.5f} < {LABEL_AGREEMENT}")
-    log(phase, f"small config, {views} views, on cuda (kernels) vs cpu (plain): floats within rtol {SLICE_RTOL} "
-               f"atol {SLICE_ATOL} (worst excess {worst:.3g}), labels agree {agree:.5f}")
+    need = BF16_LABELS if bf16 else LABEL_AGREEMENT
+    if bf16:
+        means_rel = ((og.gaussians.means.cpu() - oc.gaussians.means).abs().mean()
+                     / oc.gaussians.means.abs().mean()).item()
+        log(phase, f"small config in bf16, {views} views, on cuda (kernels) vs cpu (plain): Gaussian means mean "
+                   f"rel err {means_rel:.4g} (limit {BF16_MEANS_REL}); each float output's L2 difference as a share "
+                   f"of the cpu's bf16 - fp32 difference {({k: float(f'{r:.3g}') for k, r in ratios.items()})} "
+                   f"(limit {BF16_SLICE_FRACTION} on the Gaussians'); labels agree {agree:.5f} (limit {BF16_LABELS})")
+        worst = max(ratios[k] for k in BF16_GAUSSIAN_KEYS)
+        if not (worst <= BF16_SLICE_FRACTION and means_rel <= BF16_MEANS_REL):
+            raise AssertionError(f"{phase}: the Gaussians' cuda - cpu up to {worst:.3g} of the cpu's bf16 - fp32 "
+                                 f"(limit {BF16_SLICE_FRACTION}), means mean rel err {means_rel:.4g} (limit "
+                                 f"{BF16_MEANS_REL})")
+    if agree < need:
+        raise AssertionError(f"{phase}: labels agree on {agree:.5f} < {need}")
+    if not bf16:
+        log(phase, f"small config, {views} views, on cuda (kernels) vs cpu (plain): floats within rtol "
+                   f"{SLICE_RTOL} atol {SLICE_ATOL} (worst excess {worst:.3g}), labels agree {agree:.5f}")
 
     # the eval step: the same forward, then the render of 4 target views,
     # held against the CPU plain render of the step's own Gaussians. (Not
@@ -1327,6 +1480,11 @@ def phase_multi_slice() -> None:
     _slice_check("multi_slice", 3)
 
 
+def phase_bf16_slice() -> None:
+    _slice_check("bf16_slice", 2, "bfloat16")
+    _slice_check("bf16_slice", 3, "bfloat16")
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -1342,8 +1500,9 @@ def expected_launches(cfg, words: bool = False) -> dict:
     # and takes the plain path)
     per_dec_block = 4 if cfg.num_views == 2 else 2
     return {
-        # encoder self-attention per block (every view in one launch), then the decoders
-        "flash_attn_rope": c.enc_depth + per_dec_block * c.dec_depth,
+        # encoder self-attention per block (every view in one launch), then
+        # the decoders; kernel 1b under model.dtype: bfloat16
+        "flash_attn_rope_bf16" if cfg.dtype == "bfloat16" else "flash_attn_rope": c.enc_depth + per_dec_block * c.dec_depth,
         # Mask2Former query self-attention per decoder layer, and the words'
         # cross-attention to the queries per language layer
         "flash_attn": m.decoder_layers - 1 + (LANG_LAYERS if words else 0),
@@ -1363,7 +1522,7 @@ def check_msda_variants(n: int) -> None:
 
 def _device_breakdown(run, iters: int) -> tuple[float, list]:
     """Device time per forward from the profiler's CUDA trace: the total and
-    the 20 largest entries by name."""
+    every entry by name, largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1375,7 +1534,19 @@ def _device_breakdown(run, iters: int) -> tuple[float, list]:
     total = sum(ms for _, ms in rows)
     if total <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return total, rows[:20]
+    return total, rows
+
+
+def _kernel_kind(name: str) -> str | None:
+    """A device entry's kind by its name: a cuDNN convolution (implicit-GEMM
+    fprop/dgrad/wgrad, Winograd, FFT, or named conv), else a matrix product
+    (cuBLAS and CUTLASS GEMM kernels); None for anything else."""
+    n = name.lower()
+    if any(x in n for x in ("conv", "fprop", "dgrad", "wgrad", "winograd", "fft")):
+        return "conv"
+    if any(x in n for x in ("gemm", "xmma", "cutlass", "gemv")):
+        return "gemm"
+    return None
 
 
 def _ops_by_device_time(run) -> list:
@@ -1435,16 +1606,23 @@ def _timed_runs(run, n: int) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    device_ms, top = _device_breakdown(run, 3)
+    device_ms, rows = _device_breakdown(run, 3)
+    kinds = {"gemm": 0.0, "conv": 0.0}
+    for name, ms in rows:
+        kind = _kernel_kind(name)
+        if kind:
+            kinds[kind] += ms
     med = statistics.median(times)
     return dict(median_s=med, min_s=min(times), max_s=max(times), per_s=1.0 / med, peak_gib=peak / 2**30,
-                device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=top, runs=n)
+                device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=rows[:20], runs=n,
+                gemm_ms=kinds["gemm"], conv_ms=kinds["conv"])
 
 
 def _timing_text(t: dict, what: str) -> str:
     return (f"median of {t['runs']} warm {what} {t['median_s'] * 1e3:.2f} ms (min {t['min_s'] * 1e3:.2f}, max "
             f"{t['max_s'] * 1e3:.2f}) = {t['per_s']:.3f} per s, peak memory {t['peak_gib']:.3f} GiB; device busy "
-            f"{t['device_ms']:.2f} ms each, idle share {t['idle_share']:.3f}")
+            f"{t['device_ms']:.2f} ms each, idle share {t['idle_share']:.3f}; GEMMs {t['gemm_ms']:.3f} ms, "
+            f"convolutions {t['conv_ms']:.3f} ms")
 
 
 def two_view_cfg():
@@ -1519,7 +1697,8 @@ def _check_model_kernels(phase: str, run, iters: int, shapes: dict | None = None
                                             c["kv_mask"] is not None))
     for (qs, ks, rope, masked), (c, n) in attn.items():
         case = (qs[0], qs[1], qs[2], ks[2], qs[3], rope, "kv" if masked else None)
-        kernel = "flash_attn_rope" if rope else "flash_attn"
+        kernel = ("flash_attn_rope_bf16" if c["q"].dtype == torch.bfloat16 else "flash_attn_rope") if rope \
+            else "flash_attn"
         inputs = (c["q"], c["k"], c["v"], c["qrope"], c["krope"], c["kv_mask"])
         res = check_attention(f"{phase} x{n}", case, iters, gen, inputs=inputs, scale=c["scale"])
         _add_check(per_kernel, kernel, res, n)
@@ -1536,12 +1715,12 @@ def _check_model_kernels(phase: str, run, iters: int, shapes: dict | None = None
     return per_kernel
 
 
-def _bank_attention(phase: str, run, dec_depth: int, iters: int) -> dict:
+def _bank_attention(phase: str, run, dec_depth: int, iters: int, backward: bool = True) -> dict:
     """The multi-view decoder's masked cross-attention over the shared bank
     (RoPE on q and k, logits, mask, softmax, the weighted sum; the plain
-    path), on the inputs one ``run`` gives it: device ms per forward, and of
-    its forward and backward together per train step (the projections
-    around it excluded)."""
+    path), on the inputs one ``run`` gives it: device ms per forward, and,
+    with ``backward``, of its forward and backward together per train step
+    (the projections around it excluded)."""
     import siu3r_tpu_torch.models.layers as L
 
     with torch.no_grad(), _recorded(L, "rope_attention", keep=lambda a: a["mask"] is not None) as calls:
@@ -1552,19 +1731,20 @@ def _bank_attention(phase: str, run, dec_depth: int, iters: int) -> dict:
     fwd_ms = train_ms = logits_bytes = 0.0
     for (qs, ks), (c, n) in shapes.items():
         args = {key: x.detach() if isinstance(x, torch.Tensor) else x for key, x in c.items() if key != "out"}
-        ms = time_ms(lambda: L.rope_attention(**args), iters)[0]
+        ms = time_ms(lambda: L.rope_attention(**args), iters, events=False)[0]
         leaves = {key: args[key].clone().requires_grad_(True) for key in ("q", "k", "v")}
-        cot = torch.randn(qs, device="cuda")
+        cot = torch.randn(qs, device="cuda", dtype=args["q"].dtype)
 
         def fwd_bwd():
             out = L.rope_attention(**{**args, **leaves})
             return torch.autograd.grad(out, list(leaves.values()), cot)
 
-        both_ms = time_ms(fwd_bwd, max(3, iters // 2))[0]
+        both_ms = time_ms(fwd_bwd, max(3, iters // 2), events=False)[0] if backward else math.nan
         fwd_ms += n * ms
         train_ms += n * both_ms
         logits_bytes = max(logits_bytes, 4.0 * qs[0] * qs[1] * qs[2] * ks[2])
-        log(phase, f"bank attention q {qs} k {ks} x{n}: {ms:.4f} ms forward, {both_ms:.4f} ms forward and backward")
+        log(phase, f"bank attention q {qs} k {ks} x{n}: {ms:.4f} ms forward"
+                   + (f", {both_ms:.4f} ms forward and backward" if backward else ""))
     return dict(fwd_ms=fwd_ms, train_ms=train_ms, calls=len(calls), largest_logits_mb=logits_bytes / 1e6)
 
 
@@ -1614,9 +1794,99 @@ def _forward(phase: str, cfg) -> dict:
         log(phase, f"bank attention ({bank['calls']} calls, the plain path): {bank['fwd_ms']:.3f} ms per forward "
                    f"= {bank['fwd_share']:.4f} of the forward's device time; forward and backward "
                    f"{bank['train_ms']:.3f} ms per train step; largest logits {bank['largest_logits_mb']:.1f} MB")
+    if phase in BF16_TWINS:  # the bf16 phase of the same path takes the model
+        _KEPT[phase] = (model, res)
     del model
     torch.cuda.empty_cache()
     return res
+
+
+# the fp32 phases' models (or pipelines) and results, each taken by the bf16
+# phase of its path, which runs next: the bf16 path computes on the same
+# weights, switched with ``set_compute_dtype`` (no second random init)
+_KEPT: dict = {}
+BF16_TWINS = ("forward", "eval", "multi_forward")  # the fp32 phases with a bf16 phase after them
+
+
+def _fp32_model(fp32_phase: str, build):
+    """The model (or pipeline) and result that ``fp32_phase`` kept, or, when
+    it did not run, ``build()``'s (the same seed: the same weights) and no
+    result."""
+    kept = _KEPT.pop(fp32_phase, None)
+    return kept if kept else (build(), None)
+
+
+def _against_fp32(phase: str, out, ref) -> dict:
+    """The bf16 output against the fp32 one on the same weights and inputs,
+    with the JAX package's own bounds: Gaussian means within a mean relative
+    error of ORACLE_MEANS_REL, at least ORACLE_LABELS of the labels equal."""
+    m16, m32 = out.gaussians.means.float(), ref.gaussians.means.float()
+    means_rel = ((m16 - m32).abs().mean() / m32.abs().mean()).item()
+    labels = (out.post["segmentation"] == ref.post["segmentation"]).float().mean().item()
+    if not means_rel < ORACLE_MEANS_REL or labels < ORACLE_LABELS:
+        raise AssertionError(f"{phase}: bf16 against fp32 on the same weights: means mean rel err {means_rel:.4g} "
+                             f"(limit {ORACLE_MEANS_REL}), labels equal {labels:.5f} (limit {ORACLE_LABELS})")
+    return dict(means_rel=means_rel, labels_equal=labels)
+
+
+def _beside(res: dict, ref: dict | None) -> str:
+    if ref is None:
+        return "the fp32 phase did not run in this call"
+    return (f"fp32: median {ref['median_s'] * 1e3:.2f} ms, device {ref['device_ms']:.2f} ms, idle "
+            f"{ref['idle_share']:.3f}, peak {ref['peak_gib']:.3f} GiB, GEMMs {ref['gemm_ms']:.3f} ms, convolutions "
+            f"{ref['conv_ms']:.3f} ms; bf16/fp32 device {res['device_ms'] / ref['device_ms']:.3f}")
+
+
+def _bf16_forward(phase: str, cfg, fp32_phase: str) -> dict:
+    """The full-width forward of ``cfg`` in bf16 on the weights of the fp32
+    phase ``fp32_phase`` (its model, switched): the fp32 output first, then
+    launch counts (kernel 1b for every unmasked backbone attention, no fp32
+    ``flash_attn_rope``), no host sync, finite outputs, the bf16 output
+    against the fp32 one (``_against_fp32``), 12 warm forwards timed beside
+    the fp32 phase's; the model kernels held against their plain versions
+    on the forward's own inputs; with more than two views the bank
+    attention (the bf16 plain path)."""
+    from siu3r_tpu_torch.models.model import build_model, set_compute_dtype
+
+    model, ref_res = _fp32_model(fp32_phase, lambda: build_model(cfg, device="cuda", seed=0))
+    views = cfg.num_views
+    images, intr = _view_inputs(views)
+    run = lambda: model(images, intr, enable_query_class_logit_lift=True)
+    with torch.inference_mode():
+        ref = run()
+        set_compute_dtype(model, "bfloat16")
+        expected = expected_launches(model.cfg)
+        out = _counted_run(phase, run, expected)
+        for name, t in {**_floats(out), "pts3d": out.pts3d, "qc_mask": out.post["qc_mask_probs"]}.items():
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{phase}: forward output {name} is not finite")
+        against = _against_fp32(phase, out, ref)
+        del out, ref
+        res = dict(launches=expected, **against, **_timed_runs(run, 12))
+    log(phase, f"ViT-L {views}-view 256x256 B=1 bf16 compute (fp32 parameters, the fp32 phase's weights): launches "
+               f"{expected} (expected), no host sync, outputs finite; against fp32: means mean rel err "
+               f"{against['means_rel']:.4g} (limit {ORACLE_MEANS_REL}), labels equal {against['labels_equal']:.5f} "
+               f"(limit {ORACLE_LABELS}); {_timing_text(res, 'forwards')}; {_beside(res, ref_res)}")
+    for name, ms in res["top_device_ms"][:8]:
+        log(phase, f"  device {ms:8.3f} ms  {name[:100]}")
+    with torch.inference_mode():
+        res["kernels"] = _check_model_kernels(phase, run, 20)
+    if views > 2:
+        # forward only: the bf16 path does not train
+        res["bank"] = bank = _bank_attention(phase, run, cfg.croco.dec_depth, 20, backward=False)
+        log(phase, f"bank attention ({bank['calls']} calls, the bf16 plain path): {bank['fwd_ms']:.3f} ms per "
+                   f"forward (fp32: {'not run' if ref_res is None else format(ref_res['bank']['fwd_ms'], '.3f')})")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bf16_forward() -> dict:
+    return _bf16_forward("bf16_forward", two_view_cfg().pipeline.model, "forward")
+
+
+def phase_bf16_multi_forward() -> dict:
+    return _bf16_forward("bf16_multi_forward", multi_cfg().pipeline.model, "multi_forward")
 
 
 def phase_forward() -> dict:
@@ -1697,7 +1967,54 @@ def _eval(phase: str, cfg, n_target: int) -> dict:
     log(phase, f"tile occupancy: mean count {occ['mean_count']:.1f} of K={kcap}, share of tiles at K "
                 f"{occ['at_k']:.3f}, chunks swept per live tile {res['raster'][0]['mean_swept']:.2f} "
                 f"of {kcap // 128}, share of live tiles swept to their count {res['raster'][0]['full_sweeps']:.3f}")
-    del pipe, calls, proj
+    del calls, proj
+    if phase in BF16_TWINS:  # the bf16 phase of the same path takes the pipeline
+        _KEPT[phase] = (pipe, res)
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bf16_eval() -> dict:
+    """``Pipeline.eval_step`` at full width, two views and 6 targets, in bf16
+    on the weights of phase eval's pipeline (switched): the fp32 step first,
+    then launch counts, no host sync, shapes, finite and covered renders, the
+    step's Gaussians and labels against the fp32 step's (``_against_fp32``),
+    12 warm steps timed beside phase eval's."""
+    from siu3r_tpu_torch.models.model import set_compute_dtype
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    phase = "bf16_eval"
+    pipe, ref_res = _fp32_model("eval", lambda: Pipeline(two_view_cfg(), device="cuda", seed=0))
+    views = pipe.model.cfg.num_views
+    images, intr = _view_inputs(views)
+    with torch.inference_mode():
+        means = pipe.model(images, intr).gaussians.means
+    batch = _eval_batch(images, intr, _target_views(means, N_TARGET, views))
+    ref = pipe.eval_step(batch)
+    set_compute_dtype(pipe.model, "bfloat16")
+    run = lambda: pipe.eval_step(batch)
+    expected = {**expected_launches(pipe.model.cfg), "bin": 1, "raster": 2}
+    out, render, qc = _counted_run(phase, run, expected)
+    for name, t in (("color", render.color), ("depth", render.depth), ("alpha", render.alpha), ("qc", qc),
+                    *_floats(out).items()):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{phase}: eval step {name} not finite")
+    if tuple(render.color.shape) != (1, N_TARGET, 256, 256, 3):
+        raise AssertionError(f"{phase}: render shape {tuple(render.color.shape)}")
+    coverage = render.alpha.mean().item()
+    if coverage < MIN_COVERAGE:
+        raise AssertionError(f"{phase}: eval step: the target views see almost nothing (mean alpha {coverage})")
+    against = _against_fp32(phase, out, ref[0])
+    del out, render, qc, ref
+    res = dict(launches=expected, mean_alpha=coverage, **against, **_timed_runs(run, 12))
+    log(phase, f"Pipeline.eval_step, ViT-L {views}-view 256x256 B=1 bf16 compute + {N_TARGET} target views: "
+               f"launches {expected} (expected), no host sync, outputs finite, mean alpha {coverage:.3f}; against "
+               f"the fp32 step: means mean rel err {against['means_rel']:.4g}, labels equal "
+               f"{against['labels_equal']:.5f}; {_timing_text(res, 'steps')}; {_beside(res, ref_res)}")
+    for name, ms in res["top_device_ms"][:8]:
+        log(phase, f"  device {ms:8.3f} ms  {name[:100]}")
+    del pipe
     torch.cuda.empty_cache()
     return res
 
@@ -1709,7 +2026,6 @@ def phase_eval() -> dict:
 def phase_multi_eval() -> dict:
     cfg = multi_cfg()
     return _eval("multi_eval", cfg, multi_targets(cfg))
-
 
 
 # ---------------------------------------------------------------- phase 8: train step
@@ -3003,6 +3319,21 @@ def phase_evaluate() -> dict:
     return dict(seconds=seconds, worst=max(excess.values()))
 
 
+# the data-parallel training phases (dp_train, nccl, zero1_train,
+# dp_train_cli), which measure correctness and memory, not speed, and the
+# training loop (train_cli) run their models at every width with the depth
+# cut to 6 encoder and 3 + 3 decoder blocks (of 24 and 12 + 12): shorter
+# model builds, steps, all-reduces and checkpoints make room for the bf16
+# phases in the script's time; dp_validate sweeps the full model
+CUT_DEPTH = dict(enc_depth=6, dec_depth=3)
+
+
+def _cut_depth(cfg):
+    """``cfg`` (a RootCfg) with the depth CUT_DEPTH."""
+    cfg.pipeline.model.croco = dataclasses.replace(cfg.pipeline.model.croco, **CUT_DEPTH)
+    return cfg
+
+
 def _train_cli(root: Path, out: Path, max_steps: int, resume: Path) -> tuple[float, str]:
     """``python -m siu3r_tpu_torch.cli.train --resume resume`` (its own
     process) on configs/scannet.yaml at ``root``, k = 2, a visualisation
@@ -3014,7 +3345,7 @@ def _train_cli(root: Path, out: Path, max_steps: int, resume: Path) -> tuple[flo
                           f"trainer.max_steps={max_steps}", "trainer.accumulate_grad_batches=2",
                           "pipeline.log_training_result_interval=2", "trainer.log_every_n_steps=1",
                           "datamodule.train_loader_cfg.num_workers=2", f"datamodule.dataset_cfg.root={root}",
-                          f"output_path={out}"],
+                          f"output_path={out}", *[f"pipeline.model.croco.{k}={v}" for k, v in CUT_DEPTH.items()]],
                          cwd=here, capture_output=True, text=True, timeout=900)
     seconds = time.perf_counter() - t0
     if cli.returncode != 0:
@@ -3073,7 +3404,8 @@ def phase_train_cli() -> dict:
     """``python -m siu3r_tpu_torch.cli.train --config configs/scannet.yaml
     trainer.devices=1 trainer.max_steps=4 trainer.accumulate_grad_batches=2
     pipeline.log_training_result_interval=2`` (its own process) at full
-    width and B = 3 on the synthetic root (two steps an epoch), from a
+    width with the depth cut to CUT_DEPTH, and B = 3, on the synthetic root
+    (two steps an epoch), from a
     training state before the first epoch (``--resume`` of epoch -1, step 0)
     whose weights W are a seeded init biased by ``_scored`` so that the
     data's target views see the Gaussians: four finite records in
@@ -3082,7 +3414,7 @@ def phase_train_cli() -> dict:
     Gaussian and depth heads included, moved from W by more than their decay
     (``_check_moves``: gradients reached every head through the render);
     then ``--resume`` of it for one more epoch, from epoch 2 at global step
-    4, with finite losses. In this process from W at full width, B = 3,
+    4, with finite losses. In this process from W (the same cut), B = 3,
     k = 2: every parameter bitwise unchanged after micro-step 1; after
     micro-step 2 the frozen encoder unchanged and every trained part moved
     by more than its decay; one micro-step's launches; then micro-steps
@@ -3099,7 +3431,7 @@ def phase_train_cli() -> dict:
 
     root = _sweep_root()
     tmp = Path(_SWEEP["tmp"].name)
-    cfg = _sweep_cfg(root)
+    cfg = _cut_depth(_sweep_cfg(root))
     cfg.mode = "train"
     cfg.datamodule.dataset_cfg.num_extra_target_views = 2
     cfg.trainer.accumulate_grad_batches = 2
@@ -3136,7 +3468,8 @@ def phase_train_cli() -> dict:
         raise AssertionError(f"train_cli: the resumed run's records {rrec}:\n{stdout[-2000:]}")
     for d in (out / "checkpoints", resumed / "checkpoints"):
         shutil.rmtree(d)
-    log("train_cli", f"siu3r_tpu_torch.cli.train, configs/scannet.yaml (ViT-L 2-view 256x256 fp32, B=3, 2 + 4 "
+    log("train_cli", f"siu3r_tpu_torch.cli.train, configs/scannet.yaml (ViT-L 2-view 256x256 fp32 at depth "
+                     f"{CUT_DEPTH}, B=3, 2 + 4 "
                      f"views), k=2, max_steps {TRAIN_CLI_STEPS}, from W at epoch -1: {first_s:.1f} s in its own "
                      f"process, totals {[round(r['train/total'], 4) for r in records]}, train_viz "
                      f"{sorted(viz_dirs)}, checkpoint {ckpts[0].name} ({ckpt_bytes / 2**30:.3f} GiB), its moves from "
@@ -3381,7 +3714,7 @@ def worker_dp_train(wdir: Path, backend: str) -> None:
     rank = parallel.rank()
     parallel.stats.timed = True
     inp = torch.load(wdir / "inputs.pt", weights_only=False)
-    pipe = Pipeline(two_view_cfg(), device=device, seed=0).init_train(steps_per_epoch=1000)
+    pipe = Pipeline(_cut_depth(two_view_cfg()), device=device, seed=0).init_train(steps_per_epoch=1000)
     initial = _checksum(pipe.model)
     batch = {k: v.to(device) for k, v in parallel.shard_batch(inp["batch"]).items()}
     steps = []
@@ -3470,7 +3803,7 @@ def _dp_inputs(n_items: int = DP_RANKS):
     the card) and DP_STEPS steps of injected sample points (on the host)."""
     from siu3r_tpu_torch.pipeline import Pipeline
 
-    pipe = Pipeline(two_view_cfg(), device="cuda", seed=0).init_train(steps_per_epoch=1000)
+    pipe = Pipeline(_cut_depth(two_view_cfg()), device="cuda", seed=0).init_train(steps_per_epoch=1000)
     mcfg = pipe.cfg.pipeline.model
     batch = _framed_items(pipe, mcfg.num_views, TRAIN_TARGETS, n_items, seed=21)
     injected = [_injected_coords(mcfg, n_items, N_OBJECTS, mcfg.num_views, "cpu", seed=30 + s) for s in range(DP_STEPS)]
@@ -3486,7 +3819,8 @@ def _rank_text(r: dict) -> str:
 
 def phase_dp_train() -> dict:
     """Two ranks on the one card over gloo (``torchrun --standalone
-    --nproc_per_node 2``): configs/scannet.yaml's model at full width, a
+    --nproc_per_node 2``): configs/scannet.yaml's model at full width (depth
+    cut to CUT_DEPTH), a
     global batch of 2 (one item a rank; the config's 3 does not divide by 2),
     2 + 4 views framed as phase train frames them, 48 objects, two data-
     parallel ``Pipeline.train_step``s with injected sample points. Held
@@ -3540,7 +3874,7 @@ def phase_dp_train() -> dict:
                              f"over all (limit {DP_UPDATE_REL_L2}), step 1's first moment worst rel L2 {mu_rel:.3g} "
                              f"({mu_where}) "
                              f"of the {len(significant)} tensors with a gradient (limit {DP_MOMENT_REL_L2})")
-    log("dp_train", f"torchrun 2 ranks on one card over gloo, ViT-L 2-view 256x256 fp32, global batch 2 (1 a rank; "
+    log("dp_train", f"torchrun 2 ranks on one card over gloo, ViT-L 2-view 256x256 fp32 at depth {CUT_DEPTH}, global batch 2 (1 a rank; "
                     f"configs/scannet.yaml's 3 does not divide by 2), 2 + 4 views, {N_OBJECTS} objects, "
                     f"{DP_STEPS} steps with injected points: {seconds:.1f} s; against the one-process oracle: loss "
                     f"terms worst rel per step {[(float(f'{x:.3g}'), k) for x, k in loss_rel]} (rtol {DP_LOSS_RTOL}, "
@@ -3579,7 +3913,7 @@ def phase_nccl() -> dict:
     if (r["backend"] != "nccl" or not s["all_reduce_bytes"]
             or not all(math.isfinite(x) for step in r["steps"] for x in step["losses"].values())):
         raise AssertionError(f"nccl: {r}")
-    log("nccl", f"torchrun 1 rank over nccl, ViT-L 2-view 256x256 fp32, B=1: {seconds:.1f} s; {_rank_text(r)}")
+    log("nccl", f"torchrun 1 rank over nccl, ViT-L 2-view 256x256 fp32 at depth {CUT_DEPTH}, B=1: {seconds:.1f} s; {_rank_text(r)}")
     res = dict(seconds=seconds, rank=r, launches=s["launches"])
     if torch.cuda.device_count() >= 2:
         torch.save({"batch": _DP["batch"], "injected": _DP["injected"], "save_state": False}, wdir / "inputs.pt")
@@ -3608,7 +3942,7 @@ def worker_zero1_train(wdir: Path, backend: str) -> None:
     rank = parallel.rank()
     parallel.stats.timed = True
     inp = torch.load(wdir / "inputs.pt", weights_only=False)
-    cfg = multi_cfg()
+    cfg = _cut_depth(multi_cfg())
     pipe = Pipeline(cfg, device=device, seed=0)
     batch = {k: v.to(device) for k, v in parallel.shard_batch(inp["batch"]).items()}
     start = {k: v.detach().cpu().clone() for k, v in pipe.model.state_dict().items()}
@@ -3662,7 +3996,7 @@ def phase_zero1_train() -> dict:
     replicated step's, and the launches of kernels 1-6."""
     from siu3r_tpu_torch.pipeline import Pipeline
 
-    cfg = multi_cfg()
+    cfg = _cut_depth(multi_cfg())
     mcfg = cfg.pipeline.model
     pipe = Pipeline(cfg, device="cuda", seed=0)
     batch = _framed_items(pipe, mcfg.num_views, multi_targets(cfg), DP_RANKS, seed=41)
@@ -3683,7 +4017,8 @@ def phase_zero1_train() -> dict:
                              f" (atol {ZERO1_ATOL}), moved {[r['moved'] for r in ranks]}, launches "
                              f"{[(r['replicated']['launches'], r['zero1']['launches']) for r in ranks]} (expected "
                              f"{expected}), checksums {[r['checksum'] for r in ranks]}")
-    log("zero1_train", f"torchrun 2 ranks on one card over gloo, configs/scannet_multi.yaml ViT-L 8-view 256x256 fp32, "
+    log("zero1_train", f"torchrun 2 ranks on one card over gloo, configs/scannet_multi.yaml ViT-L 8-view 256x256 fp32 "
+                           f"at depth {CUT_DEPTH}, "
                        f"8 + {multi_targets(cfg)} views, {N_OBJECTS} objects, 1 item a rank, one step: {seconds:.1f} s; "
                        f"ZeRO-1 parameters against the replicated AdamW3 update on the same averaged gradients from "
                        f"the same state: worst {worst:.3g} (atol {ZERO1_ATOL}); both ranks alike; launches per step "
@@ -3756,7 +4091,7 @@ def _train_cli_dp(out: Path, resume: Path, extra: list, nproc: int) -> tuple[flo
             f"trainer.devices={nproc}", "trainer.accumulate_grad_batches=2", "trainer.max_steps=4",
             "trainer.log_every_n_steps=1", "trainer.check_val_every_n_epoch=1", "datamodule.train_loader_cfg.batch_size=2",
             "datamodule.train_loader_cfg.num_workers=1", f"datamodule.dataset_cfg.root={_SWEEP['root']}",
-            f"output_path={out}", *extra]
+            f"output_path={out}", *[f"pipeline.model.croco.{k}={v}" for k, v in CUT_DEPTH.items()], *extra]
     if nproc > 1:
         return _torchrun("dp_train_cli", nproc, ["-m", "siu3r_tpu_torch.cli.train", "--dist_backend", "gloo", *args],
                          900)
@@ -3771,7 +4106,8 @@ def _train_cli_dp(out: Path, resume: Path, extra: list, nproc: int) -> tuple[flo
 
 def phase_dp_train_cli() -> dict:
     """``torchrun --nproc_per_node 2 -m siu3r_tpu_torch.cli.train
-    --dist_backend gloo`` with ``trainer.zero1=true`` and k = 2 at full width,
+    --dist_backend gloo`` with ``trainer.zero1=true`` and k = 2 at full width
+    (depth cut to CUT_DEPTH),
     a global batch of 2 (three steps an epoch on the six train scenes), from
     a one-process training state of ``_scored`` weights (epoch -1): four
     steps, with train_viz every 2 and a checkpoint at the end of epoch 0, in
@@ -3786,7 +4122,7 @@ def phase_dp_train_cli() -> dict:
 
     root = _sweep_root()
     tmp = Path(_SWEEP["tmp"].name)
-    cfg = _sweep_cfg(root)
+    cfg = _cut_depth(_sweep_cfg(root))
     cfg.mode = "train"
     cfg.trainer.accumulate_grad_batches = 2
     pipe = Pipeline(cfg, device="cuda", seed=5).init_train(steps_per_epoch=TRAIN_SCENES // DP_RANKS)
@@ -3839,7 +4175,7 @@ def phase_dp_train_cli() -> dict:
     for d in (full, resumed, one):
         shutil.rmtree(d / "checkpoints")
     log("dp_train_cli", f"torchrun 2 ranks on one card over gloo, siu3r_tpu_torch.cli.train, configs/scannet.yaml "
-                        f"(ViT-L 2-view 256x256 fp32), ZeRO-1, k=2, global batch 2, 4 steps: {full_s:.1f} s, totals "
+                        f"(ViT-L 2-view 256x256 fp32 at depth {CUT_DEPTH}), ZeRO-1, k=2, global batch 2, 4 steps: {full_s:.1f} s, totals "
                         f"{[round(r['train/total'], 4) for r in records]}, train_viz {viz} ({len(scenes)} scenes "
                         f"gathered), checkpoints {ckpts} (epoch000-3 mid-accumulation, {ckpt_gib:.3f} GiB in the "
                         f"one-device layout); --resume epoch000-3 under 2 ranks: {resumed_s:.1f} s, step 3's total "
@@ -3862,15 +4198,19 @@ WORKERS = {"dp_train": worker_dp_train, "zero1_train": worker_zero1_train}
 SOURCES = {
     "flash_attn_rope": ("siu3r_tpu_torch/csrc/flash_attention.cu", "siu3r_tpu/ops/flash_attention.py:67"),
     "flash_attn": ("siu3r_tpu_torch/csrc/flash_attention.cu", "siu3r_tpu/ops/flash_attention.py:33"),
+    # kernel 1b: the same TPU kernel on bf16 q, k, v
+    "flash_attn_rope_bf16": ("siu3r_tpu_torch/csrc/flash_attention.cu", "siu3r_tpu/ops/flash_attention.py:67"),
     "msda": ("siu3r_tpu_torch/csrc/msda.cu", "siu3r_tpu/ops/msda_pallas.py:44"),
     "bin": ("siu3r_tpu_torch/csrc/binning.cu", "siu3r_tpu/render/rasterizer.py:189"),
     "raster": ("siu3r_tpu_torch/csrc/raster.cu", "siu3r_tpu/render/rasterizer.py:379"),
     "raster_bwd": ("siu3r_tpu_torch/csrc/raster_bwd.cu", "siu3r_tpu/render/rasterizer.py:527"),
 }
 PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "raster_bwd": phase_raster_bwd,
-          "autograd": phase_autograd, "slice": phase_slice_check, "forward": phase_forward, "eval": phase_eval,
-          "train": phase_train, "cli": phase_cli, "multi_slice": phase_multi_slice,
-          "multi_forward": phase_multi_forward, "multi_eval": phase_multi_eval, "multi_train": phase_multi_train,
+          "autograd": phase_autograd, "slice": phase_slice_check, "bf16_slice": phase_bf16_slice,
+          "forward": phase_forward, "bf16_forward": phase_bf16_forward, "eval": phase_eval,
+          "bf16_eval": phase_bf16_eval, "train": phase_train, "cli": phase_cli, "multi_slice": phase_multi_slice,
+          "multi_forward": phase_multi_forward, "bf16_multi_forward": phase_bf16_multi_forward,
+          "multi_eval": phase_multi_eval, "multi_train": phase_multi_train,
           "multi_cli": phase_multi_cli, "refer_slice": phase_refer_slice, "refer_forward": phase_refer_forward,
           "refer_eval": phase_refer_eval, "refer_train": phase_refer_train, "refer_cli": phase_refer_cli,
           "val_slice": phase_val_slice, "validate": phase_validate, "evaluate": phase_evaluate,
@@ -3878,7 +4218,9 @@ PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "ras
           "zero1_train": phase_zero1_train, "dp_train_cli": phase_dp_train_cli, "nccl": phase_nccl}
 
 
+T0 = time.perf_counter()
 SM_CLOCKS: dict = {}  # phase -> the SM clock (current, max) at its start and end
+PHASE_SECONDS: dict = {}  # phase -> its seconds
 
 
 def run_phase(name: str):
@@ -3888,6 +4230,7 @@ def run_phase(name: str):
     t0 = time.perf_counter()
     out = PHASES[name]()
     seconds = time.perf_counter() - t0
+    PHASE_SECONDS[name] = round(seconds, 1)
     SM_CLOCKS[name] = [start, sm_clock()]
     log(name, f"SM clock (current, max) at the start {SM_CLOCKS[name][0]}, at the end {SM_CLOCKS[name][1]}; "
               f"{seconds:.1f} s")
@@ -3936,12 +4279,16 @@ def main(argv=None) -> None:
     bwd_err = run_phase("raster_bwd")
     run_phase("autograd")
     run_phase("slice")
+    run_phase("bf16_slice")
     fwd = run_phase("forward")
+    bfwd = run_phase("bf16_forward")
     ev = run_phase("eval")
+    bev = run_phase("bf16_eval")
     tr = run_phase("train")
     run_phase("cli")
     run_phase("multi_slice")
     mfwd = run_phase("multi_forward")
+    bmfwd = run_phase("bf16_multi_forward")
     mev = run_phase("multi_eval")
     mtr = run_phase("multi_train")
     run_phase("multi_cli")
@@ -3972,12 +4319,20 @@ def main(argv=None) -> None:
              "raster_bwd": mtr["raster_bwd"]}
     multi_launches = {**mfwd["launches"], "bin": mev["launches"]["bin"], "raster": mev["launches"]["raster"],
                       "raster_bwd": mtr["launches"]["raster_bwd"]}
-    worst = {**{k: max(two_view[k]["err"], rfwd["kernels"][k]["err"]) for k in per_kernel}, "bin": render_err["bin"],
+    worst = {**{k: max(two_view[k]["err"], rfwd["kernels"][k]["err"], bfwd["kernels"][k]["err"],
+                        bmfwd["kernels"][k]["err"]) for k in per_kernel}, "bin": render_err["bin"],
              "raster": max(render_err["raster"], two_view["raster"]["err"]),
              "raster_bwd": max(bwd_err, tr["raster_bwd"]["err"])}
     worst.update({k: max(worst[k], r["err"]) for k, r in tcli["kernels"].items()})
     # the refer path's: the model kernels per refer forward on its own inputs
     # (the language layers' attention shape also on its own); no render
+    # kernel 1b runs on the bf16 paths only: its launches are the bf16
+    # forward's (and the bf16 8-view forward's under "multi_view"), its times
+    # per bf16 forward at the main path's shapes (phase kernels)
+    bf16 = "flash_attn_rope_bf16"
+    two_view_launches[bf16] = bfwd["launches"][bf16]
+    multi[bf16] = bmfwd["kernels"][bf16]
+    multi_launches[bf16] = bmfwd["launches"][bf16]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         acc, macc = two_view[name], multi[name]
@@ -4008,15 +4363,27 @@ def main(argv=None) -> None:
             **{phase: {"launches": [x.get(name, 0) for x in res["launches"]]}
                for phase, res in (("dp_train", dtr), ("zero1_train", ztr), ("dp_validate", dval))},
             "nccl": {"launches": nccl["launches"].get(name, 0)},
+            # the bf16 compute path's launches: one forward, one eval step,
+            # one 8-view forward; its times per forward on its own inputs
+            "bf16": {"launches": bfwd["launches"].get(name, 0),
+                     **{k: bfwd["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
+                        if name in bfwd["kernels"]}},
+            "bf16_eval": {"launches": bev["launches"].get(name, 0)},
+            "bf16_multi_view": {"launches": bmfwd["launches"].get(name, 0),
+                                **{k: bmfwd["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
+                                   if name in bmfwd["kernels"]}},
         })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr, "multi_forward": mfwd,
+             "bf16_forward": bfwd, "bf16_eval": bev, "bf16_multi_forward": bmfwd,
              "multi_eval": mev, "multi_train": mtr, "refer_forward": rfwd, "refer_eval": rev, "refer_train": rtr,
              "refer_cli": rcli, "val_slice": vsl, "validate": val, "evaluate": evl, "train_cli": tcli,
              "dp_validate": dval, "dp_train": dtr, "zero1_train": ztr, "dp_train_cli": dcli, "nccl": nccl,
-             "sm_clock": SM_CLOCKS}, indent=1, default=str))
+             "sm_clock": SM_CLOCKS, "phase_seconds": PHASE_SECONDS}, indent=1, default=str))
+    log("done", f"every phase passed; seconds by phase {PHASE_SECONDS}, "
+                f"{sum(PHASE_SECONDS.values()):.1f} s in all, from the start {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

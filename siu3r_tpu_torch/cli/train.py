@@ -117,7 +117,7 @@ def _train(args) -> dict:
     from siu3r_tpu_torch.checkpoint_io import restore_train_state, save_train_state
     from siu3r_tpu_torch.config import bind_scannet_classes, load_config
     from siu3r_tpu_torch.data import Loader
-    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline, gather_eval_arrays
+    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline, check_trainable, gather_eval_arrays
     from siu3r_tpu_torch.train.optimizer import make_lr_schedule
     from siu3r_tpu_torch.utils.logging import MetricsHistory, RankedLogger
     from siu3r_tpu_torch.visualizer import Visualizer, eval_step_arrays
@@ -126,6 +126,7 @@ def _train(args) -> dict:
     device = parallel.init_distributed(args.dist_backend, args.device)
     rank, world = parallel.rank(), parallel.world_size()
     cfg = bind_scannet_classes(load_config(args.config, args.overrides))
+    check_trainable(cfg.pipeline.model)
     out_dir = Path(cfg.output_path or f"outputs/{cfg.mode}/{cfg.experiment}")
     if rank == 0:
         out_dir.mkdir(parents=True, exist_ok=True)

@@ -4,7 +4,8 @@
 // Replaces the TPU kernels `_attn_rope_kernel` (siu3r_tpu/ops/flash_attention.py:67)
 // and `_attn_kernel` (siu3r_tpu/ops/flash_attention.py:33); the RoPE switch, the
 // head dim (32 or 64) and the block's layout are template parameters of one
-// kernel.
+// kernel. On bf16 inputs `_attn_rope_kernel` is a sibling kernel, kernel 1b
+// (below the fp32 design notes).
 //
 // What bounds it on the card: at the main path's shapes (N = 257 or 100 tokens,
 // D = 64 or 32, fp32) the work is 4*N*N*D flops per (batch, head) over only
@@ -55,6 +56,45 @@
 // V fragment reads the same keys. Keys past Nk take no part (-inf); keys with
 // kv_mask == 0 get the logit -1e30 as in the plain version, so a row whose
 // keys are all masked averages v uniformly.
+//
+// Kernel 1b, `flash_attn_rope_bf16_kernel`: `_attn_rope_kernel` on bf16 q,
+// k, v (the backbone's attention under `model.dtype: bfloat16`), RoPE only,
+// no key mask. The same two products, each one
+// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` per fragment, fp32
+// accumulation. Bound at the main path's shapes (N = 257, D = 64): the
+// 4*N*N*D flops at the dense bf16 rate (989 TFLOP/s) take less time than the
+// bytes (q, k, v, the bf16 tables, out; 2 bytes each), so bytes; the kernel
+// is far from either. Where it rounds, following the JAX kernel on bf16
+// inputs (siu3r_tpu/ops/flash_attention.py:67-91):
+// - the rotation: the tables are bf16, and x * cos and rot(x) * sin are
+//   each rounded to bf16, then their sum, as PyTorch's bf16 ops (the plain
+//   version) round, two columns at a time (`mul.rn.bf16x2`, `add.rn.bf16x2`);
+//   XLA may keep the products in fp32 before the add, which moves a rotated
+//   value by at most one bf16 ulp;
+// - the scores stay in the fp32 accumulator, and scale (with log2 e, for
+//   exp2f) multiplies the accumulator, not q (no second rounding of q);
+// - the probabilities: JAX rounds the *normalised* p to bf16 before p v. An
+//   online softmax rounds an unnormalised p and divides at the end, which
+//   rounds each p differently. So the kernel takes two passes over the key
+//   tiles: the first finds each row's max and sum of exp (online, fp32), the
+//   second recomputes the scores (the same products in the same order, so
+//   the same values), normalises p = exp(s - max) * (1 / sum) in fp32 (an
+//   IEEE division a score costs several times the exponential; the product
+//   with the rounded reciprocal is within an fp32 ulp of the quotient, far
+//   inside p's bf16 rounding), rounds it to bf16 and multiplies it into V.
+//   The first product is paid twice: at 257 keys that is 5 more tiles of
+//   q k^T, and K is rotated twice;
+// - the output: the fp32 accumulator rounded to bf16 once.
+// Layout: one warp per 16 query rows, 4 warps a block (2 when that gives
+// fewer blocks than SMs); K, V (pass 2 only) and the tile's cos/sin rows in
+// shared memory by 16-byte `cp.async` copies (8 bf16), two stages, the next
+// tile requested before this one is rotated and multiplied; rows
+// padded to D + 8 bf16 (D/2 + 4 words), so that the K fragment loads and the
+// V `ldmatrix` rows hit distinct banks. q is loaded into A fragments and
+// rotated in registers (its RoPE partner, DQ columns away, sits in the same
+// lane). The scores of column tiles 2i and 2i + 1, packed to bf16 pairs, are
+// the A fragment of the 16-key step i of p v as they stand; V's B fragments
+// come from `ldmatrix.x4.trans` (keys 2t, 2t + 1 of column g).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -492,6 +532,336 @@ int launch_warps(const AttnParams& p, cudaStream_t stream) {
   return split_keys(p.B, p.H, p.Nq) ? launch<D, ROPE, 2, 2>(p, stream) : launch<D, ROPE, 4, 1>(p, stream);
 }
 
+// ---------------------------------------------------------------- kernel 1b
+
+// bf16 values travel as their 16 raw bits, two to a 32-bit word with the
+// lower column in the lower half (the order of the mma fragments)
+struct AttnBf16Params {
+  const uint16_t* q;
+  const uint16_t* k;
+  const uint16_t* v;
+  const uint16_t* qcos;
+  const uint16_t* qsin;
+  const uint16_t* kcos;
+  const uint16_t* ksin;
+  uint16_t* out;
+  int B, H, Nq, Nk;
+  long long q_sb, q_sh, q_sn;
+  long long k_sb, k_sh, k_sn;
+  long long v_sb, v_sh, v_sn;
+  float scale;
+};
+
+// Shared memory, in bf16 elements: [2 stages][K [kBK][D + 8], V [kBK][D + 8],
+// cos [kBK][D], sin [kBK][D]]. A K or V row of D + 8 elements is D / 2 + 4
+// words: the K fragment loads (key g, word t) and the ldmatrix rows (8 keys,
+// 16 bytes each) then hit distinct banks.
+template <int D>
+struct SmemBf16 {
+  static constexpr int kStride = D + 8;
+  static constexpr int kCS = 2 * kBK * kStride;  // the cos rows' offset in a stage
+  static constexpr int kStage = kCS + 2 * kBK * D;
+  static constexpr int kBytes = 2 * kStage * 2;
+};
+
+// two floats rounded to the nearest bf16 (ties to even) and packed, lo in
+// the lower half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+constexpr uint32_t kSigns = 0x80008000u;  // the sign bits of a bf16 pair
+
+// x * c + o * s on bf16 pairs as PyTorch computes it on bf16 tensors: each
+// product rounded to bf16, then their sum (round to nearest even, sm_90's
+// packed bf16 multiply and add)
+__device__ __forceinline__ uint32_t rotate_bf16x2(uint32_t x, uint32_t c, uint32_t o, uint32_t s) {
+  uint32_t xc, os, r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(xc) : "r"(x), "r"(c));
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(os) : "r"(o), "r"(s));
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(xc), "r"(os));
+  return r;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
+// address of row l % 8 of matrix l / 8 and receives of matrix i, in r[i],
+// its rows 2t and 2t + 1 of column g
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* smem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint16_t* smem, const uint16_t* gmem, bool valid) {
+  cp_async16(reinterpret_cast<float*>(smem), reinterpret_cast<const float*>(gmem), valid);
+}
+
+// s = q k^T over the 8 column tiles of a 64-key tile: s[j][e] is row
+// g + 8 * (e >> 1), key 8 * j + 2 * t + (e & 1). B's k index 2t, 2t + 1 is
+// one word of K's row, and 2t + 8, 2t + 9 the word 4 further on.
+template <int D>
+__device__ __forceinline__ void scores_bf16(const uint16_t* ks, const uint32_t (&qa)[D / 16][4], float (&s)[8][4],
+                                            int g, int t) {
+  constexpr int KST = SmemBf16<D>::kStride;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint16_t* const row = ks + (j * 8 + g) * KST + kk * 16 + 2 * t;
+      mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(row), *reinterpret_cast<const uint32_t*>(row + 8));
+    }
+  }
+}
+
+// RG warps a block, 16 query rows each. Two passes over the key tiles: the
+// first takes each row's max and sum of exp, the second the normalised
+// probabilities, rounded to bf16, times V.
+template <int D, int RG>
+__global__ void __launch_bounds__(32 * RG) flash_attn_rope_bf16_kernel(const AttnBf16Params p) {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  using S = SmemBf16<D>;
+  constexpr int KS = D / 16;  // k-steps of q k^T
+  constexpr int NT = D / 8;   // column tiles of the output
+  constexpr int DQ = D / 4;   // RoPE2D quarter
+  constexpr int CH = D / 8;   // 16-byte chunks of a row
+  constexpr int KST = S::kStride;
+  constexpr int kThreads = 32 * RG;
+
+  extern __shared__ __align__(16) float smem[];
+  uint16_t* const sh = reinterpret_cast<uint16_t*>(smem);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int row0 = (blockIdx.x * RG + tid / 32) * 16;
+  const bool active = row0 < p.Nq;  // uniform over the warp
+  const uint16_t* const kbase = p.k + b * p.k_sb + h * p.k_sh;
+  const uint16_t* const vbase = p.v + b * p.v_sb + h * p.v_sh;
+  const int n_tiles = (p.Nk + kBK - 1) / kBK;
+  const int n_steps = 2 * n_tiles;  // pass 0 on steps < n_tiles, pass 1 after
+
+  // request the key tile of `step` into `stage`: K and its cos/sin rows, and
+  // V in pass 1
+  auto issue = [&](int step, int stage) {
+    const bool with_v = step >= n_tiles;
+    const int k0 = (with_v ? step - n_tiles : step) * kBK;
+    const int kend = min(kBK, p.Nk - k0);
+    uint16_t* const ks = sh + stage * S::kStage;
+    uint16_t* const vs = ks + kBK * KST;
+    uint16_t* const cs = ks + S::kCS;
+    for (int e = tid; e < kBK * CH; e += kThreads) {
+      const int j = e / CH;
+      const int c = (e % CH) * 8;
+      const bool live = j < kend;
+      const long long key = live ? k0 + j : 0;
+      cp_async16(ks + j * KST + c, kbase + key * p.k_sn + c, live);
+      if (with_v) cp_async16(vs + j * KST + c, vbase + key * p.v_sn + c, live);
+      const long long at = ((long long)b * p.Nk + key) * D + c;
+      cp_async16(cs + j * D + c, p.kcos + at, live);
+      cp_async16(cs + (kBK + j) * D + c, p.ksin + at, live);
+    }
+    cp_async_commit();
+  };
+
+  issue(0, 0);
+
+  // q: rows row0 + g and row0 + g + 8 (the tail clamped to a valid row, its
+  // store skipped) in the A-fragment layout, rotated in registers: fragment
+  // register r of k-step kk holds row g + 8 * (r & 1), columns
+  // kk * 16 + 8 * (r >> 1) + 2t and + 1, and its RoPE partner (the column
+  // DQ away) sits in the same lane: k-step kk ^ 1 at D = 64, register r ^ 2
+  // at D = 32
+  uint32_t qa[KS][4];
+  {
+    const int rows[2] = {min(row0 + g, p.Nq - 1), min(row0 + g + 8, p.Nq - 1)};
+    uint32_t qx[KS][4], qc[KS][4], qs[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = rows[r & 1];
+        const int col = kk * 16 + 8 * (r >> 1) + 2 * t;
+        const long long at = ((long long)b * p.Nq + row) * D + col;
+        qx[kk][r] = *reinterpret_cast<const uint32_t*>(p.q + b * p.q_sb + h * p.q_sh + row * p.q_sn + col);
+        qc[kk][r] = *reinterpret_cast<const uint32_t*>(p.qcos + at);
+        qs[kk][r] = *reinterpret_cast<const uint32_t*>(p.qsin + at);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int pk = DQ == 16 ? kk ^ 1 : kk;
+        const int pr = DQ == 16 ? r : r ^ 2;
+        const bool first = DQ == 16 ? (kk & 1) == 0 : (r >> 1) == 0;  // quarter 0 or 2: takes -partner
+        const uint32_t other = first ? qx[pk][pr] ^ kSigns : qx[pk][pr];
+        qa[kk][r] = rotate_bf16x2(qx[kk][r], qc[kk][r], other, qs[kk][r]);
+      }
+    }
+  }
+
+  float o[NT][4];
+#pragma unroll
+  for (int dn = 0; dn < NT; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};  // max of rows g and g + 8, in log2 units
+  float l[2] = {0.f, 0.f};              // their sums of exp2(s - m): this lane's share, then 1 / the row's
+  const float sl2 = p.scale * kLog2e;
+
+#pragma unroll 1
+  for (int step = 0; step < n_steps; ++step) {
+    const int stage = step & 1;
+    const bool products = step >= n_tiles;
+    const int kend = min(kBK, p.Nk - (products ? step - n_tiles : step) * kBK);
+    uint16_t* const ks = sh + stage * S::kStage;
+    const uint16_t* const vs = ks + kBK * KST;
+    const uint16_t* const cs = ks + S::kCS;
+    cp_async_wait_all();
+    // this tile has landed for every thread, and every thread is done with
+    // the other stage: the next tile's copies run under this one's rotation
+    // and products
+    __syncthreads();
+    if (step + 1 < n_steps) issue(step + 1, stage ^ 1);
+    // rotate K in place: two adjacent columns of quarter 0 or 2 and their
+    // partners DQ further on, per item
+    for (int e = tid; e < kend * (D / 4); e += kThreads) {
+      const int j = e / (D / 4);
+      const int w = (e % (D / 4)) * 2;
+      const int c0 = (w / DQ) * 2 * DQ + w % DQ;
+      const int c1 = c0 + DQ;
+      uint32_t* const k0p = reinterpret_cast<uint32_t*>(ks + j * KST + c0);
+      uint32_t* const k1p = reinterpret_cast<uint32_t*>(ks + j * KST + c1);
+      const uint32_t x0 = *k0p, x1 = *k1p;
+      const uint32_t cos0 = *reinterpret_cast<const uint32_t*>(cs + j * D + c0);
+      const uint32_t cos1 = *reinterpret_cast<const uint32_t*>(cs + j * D + c1);
+      const uint32_t sin0 = *reinterpret_cast<const uint32_t*>(cs + (kBK + j) * D + c0);
+      const uint32_t sin1 = *reinterpret_cast<const uint32_t*>(cs + (kBK + j) * D + c1);
+      *k0p = rotate_bf16x2(x0, cos0, x1 ^ kSigns, sin0);
+      *k1p = rotate_bf16x2(x1, cos1, x0, sin1);
+    }
+    __syncthreads();  // K rotated
+
+    if (active) {
+      float s[8][4];
+      scores_bf16<D>(ks, qa, s, g, t);
+      // the fp32 scores times scale, in log2 units; keys past Nk take no part
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = j * 8 + 2 * t + (e & 1) < kend ? s[j][e] * sl2 : -INFINITY;
+      }
+      if (!products) {
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+          l[r] *= exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
+          m[r] = mx[r];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[j][e] - m[e >> 1]);
+        }
+        if (step == n_tiles - 1) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(kFull, l[r], 1);
+            l[r] += __shfl_xor_sync(kFull, l[r], 2);
+            l[r] = __frcp_rn(l[r]);  // from here on, 1 / the row's sum
+          }
+        }
+      } else {
+        // o += p v over four 16-key steps: the score accumulators of column
+        // tiles 2i and 2i + 1, normalised and packed to bf16 pairs, are the
+        // A fragment of keys 16i..16i + 15 as they stand
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float pr[2][4];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pr[jj][e] = exp2f(s[2 * i + jj][e] - m[e >> 1]) * l[e >> 1];
+          }
+          const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[0][2], pr[0][3]),
+                                  pack_bf16(pr[1][0], pr[1][1]), pack_bf16(pr[1][2], pr[1][3])};
+          // matrices 0, 1: keys 16i + 0..7 and + 8..15 at columns 16n..16n + 7
+          // (B of output tile 2n); matrices 2, 3: the same at 16n + 8.. (tile 2n + 1)
+          const uint16_t* const vrow = vs + (16 * i + (lane & 7) + ((lane >> 3) & 1) * 8) * KST + (lane >> 4) * 8;
+#pragma unroll
+          for (int n = 0; n < D / 16; ++n) {
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, vrow + 16 * n);
+            mma_bf16(o[2 * n], pa, vb[0], vb[1]);
+            mma_bf16(o[2 * n + 1], pa, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+  }
+
+  if (active) {
+    uint16_t* const out = p.out + (long long)bh * p.Nq * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row < p.Nq) {
+#pragma unroll
+        for (int dn = 0; dn < NT; ++dn) {
+          *reinterpret_cast<uint32_t*>(out + (long long)row * D + dn * 8 + 2 * t) =
+              pack_bf16(o[dn][2 * r], o[dn][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D, int RG>
+int launch_bf16(const AttnBf16Params& p, cudaStream_t stream) {
+  const auto kernel = flash_attn_rope_bf16_kernel<D, RG>;
+  constexpr int smem = SmemBf16<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Nq + 16 * RG - 1) / (16 * RG), p.B * p.H);
+  kernel<<<grid, 32 * RG, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// 4 warps (64 query rows) a block when that gives at least one block per SM,
+// else 2 (32 rows)
+template <int D>
+int launch_bf16_warps(const AttnBf16Params& p, cudaStream_t stream) {
+  return split_keys(p.B, p.H, p.Nq) ? launch_bf16<D, 2>(p, stream) : launch_bf16<D, 4>(p, stream);
+}
+
 }  // namespace
 
 // q [B, H, Nq, D], k/v [B, H, Nk, D] with unit stride on D, the given element
@@ -526,5 +896,36 @@ extern "C" int siu3r_flash_attn_launch_config(int B, int H, int Nq, int D, int r
   *blocks = B * H * ((Nq + rows - 1) / rows);
   *threads = 128;
   *smem = smem_bytes(D, rope != 0);
+  return 0;
+}
+
+// Kernel 1b: q [B, H, Nq, D], k/v [B, H, Nk, D] bf16 with unit stride on D,
+// the given element strides (multiples of 8) and 16-byte-aligned bases;
+// cos/sin [B, N, D] bf16 contiguous; out [B, H, Nq, D] bf16 contiguous.
+extern "C" int siu3r_flash_attn_rope_bf16_fwd(
+    const uint16_t* q, const uint16_t* k, const uint16_t* v,
+    const uint16_t* qcos, const uint16_t* qsin, const uint16_t* kcos, const uint16_t* ksin, uint16_t* out,
+    int B, int H, int Nq, int Nk, int D,
+    long long q_sb, long long q_sh, long long q_sn,
+    long long k_sb, long long k_sh, long long k_sn,
+    long long v_sb, long long v_sh, long long v_sn,
+    float scale, cudaStream_t stream) {
+  const AttnBf16Params p{q, k, v, qcos, qsin, kcos, ksin, out,
+                         B, H, Nq, Nk,
+                         q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn,
+                         scale};
+  if (D == 64) return launch_bf16_warps<64>(p, stream);
+  if (D == 32) return launch_bf16_warps<32>(p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 1b's launch for these sizes: blocks, threads a block, dynamic
+// shared memory bytes a block.
+extern "C" int siu3r_flash_attn_bf16_launch_config(int B, int H, int Nq, int D, int* blocks, int* threads, int* smem) {
+  if (D != 32 && D != 64) return (int)cudaErrorInvalidValue;
+  const int rg = split_keys(B, H, Nq) ? 2 : 4;
+  *blocks = B * H * ((Nq + 16 * rg - 1) / (16 * rg));
+  *threads = 32 * rg;
+  *smem = D == 64 ? SmemBf16<64>::kBytes : SmemBf16<32>::kBytes;
   return 0;
 }

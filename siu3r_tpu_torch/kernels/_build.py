@@ -50,6 +50,8 @@ _ll = ctypes.c_longlong
 _SIGNATURES = {
     "siu3r_flash_attn_fwd": [_vp] * 9 + [_i] * 5 + [_ll] * 9 + [ctypes.c_float, _vp],
     "siu3r_flash_attn_launch_config": [_i] * 5 + [ctypes.POINTER(_i)] * 3,
+    "siu3r_flash_attn_rope_bf16_fwd": [_vp] * 8 + [_i] * 5 + [_ll] * 9 + [ctypes.c_float, _vp],
+    "siu3r_flash_attn_bf16_launch_config": [_i] * 4 + [ctypes.POINTER(_i)] * 3,
     "siu3r_msda_fwd": [_vp] * 6 + [_i] * 7 + [ctypes.POINTER(_i), _vp],
     "siu3r_bin_scratch_ints": [_i] * 4,
     "siu3r_bin_gaussians": [_vp] * 6 + [_i] * 9 + [_vp],

@@ -113,6 +113,12 @@ def msda(
 ) -> torch.Tensor:
     """value [B, Len_in, H, D]; sampling_locations [B, Lq, H, L, P, 2] in
     [0, 1] as (x, y); attention_weights [B, Lq, H, L, P]. Returns
-    [B, Lq, H*D] fp32, differentiable in all three. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
-    return _MSDA.apply(value, tuple(spatial_shapes), sampling_locations, attention_weights)
+    [B, Lq, H*D] in value's dtype, differentiable in all three. CPU tensors
+    take the plain version; CUDA tensors launch the kernel.
+
+    The kernel is fp32. A bf16 value (the adapter under ``model.dtype:
+    bfloat16``) is sampled in fp32, as the JAX package's ``_msda_matmul``
+    samples it: the three inputs are cast to fp32 here, and the output back
+    to value's dtype."""
+    out = _MSDA.apply(value.float(), tuple(spatial_shapes), sampling_locations.float(), attention_weights.float())
+    return out.to(value.dtype)

@@ -12,14 +12,23 @@ it normalises with the running statistics; in train mode (``module.train()``)
 with the batch's mean and *biased* variance E[x^2] - E[x]^2 (clipped at 0),
 differentiated through, and it updates the running statistics with the same
 biased variance at momentum 0.1 (``nn.BatchNorm2d`` would store the unbiased
-one). The statistics are those of this device's batch, as the JAX package's
+one). Either way in flax's arithmetic, (x - mean) * (rsqrt(var + eps) *
+scale) + bias in fp32: under bf16 its output is rounded to bf16 by the next
+convolution, and another fp32 rounding order moves some of those roundings.
+The statistics are those of this device's batch, as the JAX package's
 single-device step computes them (the reference's SyncBN waits for the
 data-parallel slice).
+
+``dtype`` is the compute dtype (the JAX modules' ``dtype``) of the SPM
+convolutions and its ``fc1..4``, the deformable attention's projections, the
+ConvFFN (its depthwise conv included) and the ``up`` transposed conv. The
+BatchNorms compute in fp32 and return fp32 (flax's ``nn.BatchNorm`` without
+a dtype), as do the LayerNorms; the softmax of bf16 attention logits gives
+bf16 weights, and the deformable sampling runs in fp32 (``kernels/msda.py``).
 """
 
 from __future__ import annotations
 
-from functools import partial
 from typing import List, Sequence
 
 import torch
@@ -27,9 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from siu3r_tpu_torch.kernels.msda import msda
+from siu3r_tpu_torch.models.layers import Conv2d, ConvTranspose2d, LayerNorm, Linear, gelu, softmax
 from siu3r_tpu_torch.ops.deformable import reference_points_for_shapes
-
-LayerNorm6 = partial(nn.LayerNorm, eps=1e-6)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -40,37 +48,39 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        x = x.float()
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
-def _conv_bn_relu(cin: int, cout: int, stride: int) -> List[nn.Module]:
-    return [nn.Conv2d(cin, cout, 3, stride, 1, bias=False), BatchNorm(cout), nn.ReLU()]
+def _conv_bn_relu(cin: int, cout: int, stride: int, dtype: torch.dtype) -> List[nn.Module]:
+    return [Conv2d(cin, cout, 3, stride, 1, bias=False, compute_dtype=dtype), BatchNorm(cout), nn.ReLU()]
 
 
 class SpatialPriorModule(nn.Module):
-    def __init__(self, inplanes: int = 64, embed_dim: int = 1024):
+    def __init__(self, inplanes: int = 64, embed_dim: int = 1024, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stem = nn.Sequential(
-            *_conv_bn_relu(3, inplanes, 2),
-            *_conv_bn_relu(inplanes, inplanes, 1),
-            *_conv_bn_relu(inplanes, inplanes, 1),
+            *_conv_bn_relu(3, inplanes, 2, dtype),
+            *_conv_bn_relu(inplanes, inplanes, 1, dtype),
+            *_conv_bn_relu(inplanes, inplanes, 1, dtype),
             nn.MaxPool2d(kernel_size=3, stride=2, padding=1),
         )
-        self.conv2 = nn.Sequential(*_conv_bn_relu(inplanes, 2 * inplanes, 2))
-        self.conv3 = nn.Sequential(*_conv_bn_relu(2 * inplanes, 4 * inplanes, 2))
-        self.conv4 = nn.Sequential(*_conv_bn_relu(4 * inplanes, 4 * inplanes, 2))
-        self.fc1 = nn.Conv2d(inplanes, embed_dim, 1)
-        self.fc2 = nn.Conv2d(2 * inplanes, embed_dim, 1)
-        self.fc3 = nn.Conv2d(4 * inplanes, embed_dim, 1)
-        self.fc4 = nn.Conv2d(4 * inplanes, embed_dim, 1)
+        self.conv2 = nn.Sequential(*_conv_bn_relu(inplanes, 2 * inplanes, 2, dtype))
+        self.conv3 = nn.Sequential(*_conv_bn_relu(2 * inplanes, 4 * inplanes, 2, dtype))
+        self.conv4 = nn.Sequential(*_conv_bn_relu(4 * inplanes, 4 * inplanes, 2, dtype))
+        self.fc1 = Conv2d(inplanes, embed_dim, 1, compute_dtype=dtype)
+        self.fc2 = Conv2d(2 * inplanes, embed_dim, 1, compute_dtype=dtype)
+        self.fc3 = Conv2d(4 * inplanes, embed_dim, 1, compute_dtype=dtype)
+        self.fc4 = Conv2d(4 * inplanes, embed_dim, 1, compute_dtype=dtype)
 
     def forward(self, x):
         """x [B, 3, H, W] -> four NCHW maps at 1/4, 1/8, 1/16, 1/32."""
@@ -85,13 +95,14 @@ class MSDeformAttn(nn.Module):
     """Multi-scale deformable attention module; the sampling runs in the
     ``msda`` kernel."""
 
-    def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int):
+    def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
-        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
-        self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.sampling_offsets = Linear(d_model, n_heads * n_levels * n_points * 2, compute_dtype=dtype)
+        self.attention_weights = Linear(d_model, n_heads * n_levels * n_points, compute_dtype=dtype)
+        self.value_proj = Linear(d_model, d_model, compute_dtype=dtype)
+        self.output_proj = Linear(d_model, d_model, compute_dtype=dtype)
 
     def forward(self, query, reference_points, value_flat, spatial_shapes):
         """query [B, Lq, C]; reference_points [1 or B, Lq, n_levels, 2];
@@ -102,10 +113,11 @@ class MSDeformAttn(nn.Module):
         value = self.value_proj(value_flat).view(b, len_in, nh, c // nh)
         offsets = self.sampling_offsets(query).view(b, lq, nh, nl, npt, 2)
         weights = self.attention_weights(query).view(b, lq, nh, nl * npt)
-        weights = torch.softmax(weights, dim=-1).view(b, lq, nh, nl, npt)
+        weights = softmax(weights, dim=-1).view(b, lq, nh, nl, npt)
         # filled on the device: a tensor from a host list, or an assigned
-        # Python number, is copied from the host and syncs the stream
-        normalizer = offsets.new_empty((nl, 2))
+        # Python number, is copied from the host and syncs the stream. fp32,
+        # as the JAX module's: bf16 offsets divide into fp32 locations
+        normalizer = offsets.new_empty((nl, 2), dtype=torch.float32)
         for lvl, (h, w) in enumerate(spatial_shapes):
             normalizer[lvl, 0].fill_(w)
             normalizer[lvl, 1].fill_(h)
@@ -120,9 +132,9 @@ class MSDeformAttn(nn.Module):
 class DWConv(nn.Module):
     """Depthwise 3x3 over the three pyramid sub-resolutions."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dwconv = nn.Conv2d(dim, dim, 3, 1, 1, groups=dim)
+        self.dwconv = Conv2d(dim, dim, 3, 1, 1, groups=dim, compute_dtype=dtype)
 
     def forward(self, x, h16: int, w16: int):
         b, n, c = x.shape
@@ -139,24 +151,25 @@ class DWConv(nn.Module):
 
 
 class ConvFFN(nn.Module):
-    def __init__(self, in_features: int, hidden: int):
+    def __init__(self, in_features: int, hidden: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden)
-        self.dwconv = DWConv(hidden)
-        self.fc2 = nn.Linear(hidden, in_features)
+        self.fc1 = Linear(in_features, hidden, compute_dtype=dtype)
+        self.dwconv = DWConv(hidden, dtype)
+        self.fc2 = Linear(hidden, in_features, compute_dtype=dtype)
 
     def forward(self, x, h16: int, w16: int):
-        return self.fc2(F.gelu(self.dwconv(self.fc1(x), h16, w16)))
+        return self.fc2(gelu(self.dwconv(self.fc1(x), h16, w16)))
 
 
 class Extractor(nn.Module):
-    def __init__(self, dim: int, num_heads: int, n_points: int, cffn_ratio: float = 0.25):
+    def __init__(self, dim: int, num_heads: int, n_points: int, cffn_ratio: float = 0.25,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.query_norm = LayerNorm6(dim)
-        self.feat_norm = LayerNorm6(dim)
-        self.attn = MSDeformAttn(dim, 1, num_heads, n_points)
-        self.ffn_norm = LayerNorm6(dim)
-        self.ffn = ConvFFN(dim, int(dim * cffn_ratio))
+        self.query_norm = LayerNorm(dim)
+        self.feat_norm = LayerNorm(dim)
+        self.attn = MSDeformAttn(dim, 1, num_heads, n_points, dtype)
+        self.ffn_norm = LayerNorm(dim)
+        self.ffn = ConvFFN(dim, int(dim * cffn_ratio), dtype)
 
     def forward(self, query, reference_points, feat, spatial_shapes, h16, w16):
         query = query + self.attn(
@@ -166,11 +179,12 @@ class Extractor(nn.Module):
 
 
 class InteractionBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, n_points: int, extra_extractor: bool):
+    def __init__(self, dim: int, num_heads: int, n_points: int, extra_extractor: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.extractor = Extractor(dim, num_heads, n_points)
+        self.extractor = Extractor(dim, num_heads, n_points, dtype=dtype)
         self.extra_extractors = (
-            nn.ModuleList([Extractor(dim, num_heads, n_points) for _ in range(2)])
+            nn.ModuleList([Extractor(dim, num_heads, n_points, dtype=dtype) for _ in range(2)])
             if extra_extractor else None
         )
 
@@ -192,6 +206,7 @@ class CroCoViTAdapter(nn.Module):
         interaction_indexes: Sequence[int] = (5, 11, 17, 23),
         add_vit_feature: bool = True,
         use_extra_extractor: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.embed_dim = embed_dim
@@ -199,18 +214,18 @@ class CroCoViTAdapter(nn.Module):
         self.interaction_indexes = tuple(interaction_indexes)
         self.add_vit_feature = add_vit_feature
         self.level_embed = nn.Parameter(torch.zeros(3, embed_dim))
-        self.spm = SpatialPriorModule(conv_inplane, embed_dim)
+        self.spm = SpatialPriorModule(conv_inplane, embed_dim, dtype)
         n_inter = len(self.interaction_indexes)
         self.interactions = nn.ModuleList(
             [
                 InteractionBlock(
                     embed_dim, deform_num_heads, n_points,
-                    extra_extractor=use_extra_extractor and i == n_inter - 1,
+                    extra_extractor=use_extra_extractor and i == n_inter - 1, dtype=dtype,
                 )
                 for i in range(n_inter)
             ]
         )
-        self.up = nn.ConvTranspose2d(embed_dim, embed_dim, 2, 2)
+        self.up = ConvTranspose2d(embed_dim, embed_dim, 2, 2, compute_dtype=dtype)
         self.norm1 = BatchNorm(embed_dim)
         self.norm2 = BatchNorm(embed_dim)
         self.norm3 = BatchNorm(embed_dim)

@@ -11,6 +11,13 @@ cross-attends a bank of every view's pre-layer tokens, masked so that no
 view reads its own. The module names are the same in both, so one state dict
 serves both. The JAX package's ``nn.scan`` stacks become Python loops over
 ``nn.ModuleList``s.
+
+``dtype`` is the compute dtype of the patch embedding and the blocks (the
+JAX modules' ``dtype``); the intrinsic encoder and the decoder embedding stay
+fp32, as flax's ``nn.Dense`` without a dtype computes there. Under bf16 the
+encoder's residual stream is bf16 (a bf16 patch embedding, the intrinsic
+token cast to it, bf16 branches), the normed encoder output is fp32, and so
+is the decoders' stream (an fp32 embedding plus bf16 branches).
 """
 
 from __future__ import annotations
@@ -45,22 +52,24 @@ class MultiViewBackboneOutput:
 
 
 class _CroCoBase(nn.Module):
-    def __init__(self, cfg: CrocoCfg):
+    def __init__(self, cfg: CrocoCfg, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         c = cfg
-        self.patch_embed = PatchEmbed(c.patch_size, c.enc_embed_dim)
+        self.patch_embed = PatchEmbed(c.patch_size, c.enc_embed_dim, dtype=dtype)
         self.intrinsic_encoder = nn.Linear(9, c.enc_embed_dim)
         self.enc_blocks = nn.ModuleList(
-            [Block(c.enc_embed_dim, c.enc_num_heads, rope_base=c.rope_base) for _ in range(c.enc_depth)]
+            [Block(c.enc_embed_dim, c.enc_num_heads, rope_base=c.rope_base, dtype=dtype) for _ in range(c.enc_depth)]
         )
         self.enc_norm = LayerNorm(c.enc_embed_dim)
         self.decoder_embed = nn.Linear(c.enc_embed_dim, c.dec_embed_dim)
         self.dec_blocks = nn.ModuleList(
-            [DecoderBlock(c.dec_embed_dim, c.dec_num_heads, rope_base=c.rope_base) for _ in range(c.dec_depth)]
+            [DecoderBlock(c.dec_embed_dim, c.dec_num_heads, rope_base=c.rope_base, dtype=dtype)
+             for _ in range(c.dec_depth)]
         )
         self.dec_blocks2 = nn.ModuleList(
-            [DecoderBlock(c.dec_embed_dim, c.dec_num_heads, rope_base=c.rope_base) for _ in range(c.dec_depth)]
+            [DecoderBlock(c.dec_embed_dim, c.dec_num_heads, rope_base=c.rope_base, dtype=dtype)
+             for _ in range(c.dec_depth)]
         )
         self.dec_norm = LayerNorm(c.dec_embed_dim)
 
@@ -70,7 +79,7 @@ class _CroCoBase(nn.Module):
         n, h, _, _ = images_flat.shape
         x, pos = self.patch_embed(images_flat)
         intr_tok = self.intrinsic_encoder(intrinsics_flat.reshape(n, 9))
-        x = torch.cat([x, intr_tok[:, None].to(x.dtype)], dim=1)
+        x = torch.cat([x, intr_tok[:, None].to(x.dtype)], dim=1)  # the stream's dtype (oracle backbone.py:199)
         gh = h // self.cfg.patch_size
         # built on the device: a tensor from a host list, or an assigned
         # Python number, is copied from the host and syncs the stream

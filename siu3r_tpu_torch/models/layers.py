@@ -4,11 +4,26 @@
 Pre-norm ViT blocks with RoPE2D on q/k inside attention, LayerNorm eps 1e-6
 and exact GELU. Module and parameter names are the reference's torch names, so
 a reference ``state_dict`` loads as it is.
+
+Compute dtype (``model.dtype``), as flax's ``dtype`` attribute: parameters
+stay fp32; ``Linear``, ``Conv2d`` and ``ConvTranspose2d`` built with
+``compute_dtype`` cast their input, weight and bias to it (flax's
+``nn.Dense``/``nn.Conv`` with ``dtype=``), so under bf16 they compute and
+return bf16. ``LayerNorm`` has no dtype in the JAX package: flax promotes a
+bf16 input with its fp32 scale, so it returns fp32 whatever it is given.
+Residual adds promote as in JAX (bf16 + bf16 stays bf16, fp32 + bf16 is
+fp32). No ``torch.autocast``: its per-op lists are not flax's rules.
+
+In bf16 the port also rounds where the JAX package's ops round: a layer's
+product and its bias add are rounded each (``nn.Dense`` adds the bias after
+the product), and ``gelu`` and ``softmax`` take ``jax.nn``'s steps in bf16,
+each rounded. A fused bias or a GELU rounded once differs from the JAX
+package in a quarter of the elements by one bf16 ulp, about as much as bf16
+differs from fp32. In fp32 each is the one fused call.
 """
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Optional
 
 import torch
@@ -17,17 +32,101 @@ from torch import nn
 
 from siu3r_tpu_torch.ops.attention import multi_head_attention, rope_attention
 
-LayerNorm = partial(nn.LayerNorm, eps=1e-6)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# sqrt(0.5) rounded to bf16, as jax.nn.gelu casts it to the input's dtype
+_SQRT_HALF_BF16 = float(torch.tensor(0.5**0.5).to(torch.bfloat16))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU; in bf16 ``jax.nn.gelu(approximate=False)``'s steps, each
+    rounded: (0.5 x) erfc(-x sqrt(0.5))."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return (0.5 * x) * torch.erfc(-x * _SQRT_HALF_BF16)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Softmax; in bf16 ``jax.nn.softmax``'s steps, each rounded (the sum
+    accumulated in fp32)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True)
+
+
+def _with_bias(product, x, weight, bias, dt: torch.dtype, bias_view=lambda b: b):
+    """``product(x, weight, bias)`` in ``dt``; below fp32 the bias is added
+    after the rounded product, as flax adds it."""
+    x, weight = x.to(dt), weight.to(dt)
+    if dt == torch.float32 or bias is None:
+        return product(x, weight, None if bias is None else bias.to(dt))
+    return product(x, weight, None) + bias_view(bias.to(dt))
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in ``compute_dtype`` (input, weight and bias cast)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return _with_bias(F.linear, x, self.weight, self.bias, self.compute_dtype)
+
+
+def _per_channel(b: torch.Tensor) -> torch.Tensor:
+    return b[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in ``compute_dtype`` (input, weight and bias cast)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return _with_bias(self._conv_forward, x, self.weight, self.bias, self.compute_dtype, _per_channel)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (no padding) computing in ``compute_dtype``."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        def product(x, w, b):
+            return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding, self.groups,
+                                      self.dilation)
+
+        return _with_bias(product, x, self.weight, self.bias, self.compute_dtype, _per_channel)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm, eps 1e-6, with an fp32 output: flax's promotion of a bf16
+    input with fp32 parameters."""
+
+    def __init__(self, normalized_shape: int):
+        super().__init__(normalized_shape, eps=1e-6)
+
+    def forward(self, x):
+        return super().forward(x.float())
 
 
 class Mlp(nn.Module):
-    def __init__(self, in_features: int, hidden_features: int, out_features: Optional[int] = None):
+    def __init__(self, in_features: int, hidden_features: int, out_features: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features or in_features)
+        self.fc1 = Linear(in_features, hidden_features, compute_dtype=dtype)
+        self.fc2 = Linear(hidden_features, out_features or in_features, compute_dtype=dtype)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(gelu(self.fc1(x)))
 
 
 def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
@@ -44,12 +143,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 class Attention(nn.Module):
     """Self-attention with RoPE2D."""
 
-    def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = 100.0):
+    def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = 100.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.rope_base = rope_base
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim, compute_dtype=dtype)
+        self.proj = Linear(dim, dim, compute_dtype=dtype)
 
     def forward(self, x, xpos):
         b, n, c = x.shape
@@ -64,14 +164,15 @@ class Attention(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = 100.0):
+    def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = 100.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.rope_base = rope_base
-        self.projq = nn.Linear(dim, dim)
-        self.projk = nn.Linear(dim, dim)
-        self.projv = nn.Linear(dim, dim)
-        self.proj = nn.Linear(dim, dim)
+        self.projq = Linear(dim, dim, compute_dtype=dtype)
+        self.projk = Linear(dim, dim, compute_dtype=dtype)
+        self.projv = Linear(dim, dim, compute_dtype=dtype)
+        self.proj = Linear(dim, dim, compute_dtype=dtype)
 
     def forward(self, query, key, value, qpos, kpos, mask=None):
         h = self.num_heads
@@ -89,12 +190,12 @@ class Block(nn.Module):
     """Encoder block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 rope_base: Optional[float] = 100.0):
+                 rope_base: Optional[float] = 100.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads, rope_base)
+        self.attn = Attention(dim, num_heads, rope_base, dtype)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x, xpos):
         x = x + self.attn(self.norm1(x), xpos)
@@ -105,15 +206,15 @@ class DecoderBlock(nn.Module):
     """Self-attention, cross-attention to the other views, MLP."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 rope_base: Optional[float] = 100.0):
+                 rope_base: Optional[float] = 100.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads, rope_base)
+        self.attn = Attention(dim, num_heads, rope_base, dtype)
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
         self.norm_y = LayerNorm(dim)
-        self.cross_attn = CrossAttention(dim, num_heads, rope_base)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.cross_attn = CrossAttention(dim, num_heads, rope_base, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x, y, xpos, ypos):
         """Two-view layer: x [B, L, C] cross-attends the other view's y."""
@@ -149,10 +250,11 @@ def token_positions(h: int, w: int, device=None) -> torch.Tensor:
 class PatchEmbed(nn.Module):
     """Conv p x p / stride p patchifier."""
 
-    def __init__(self, patch_size: int = 16, embed_dim: int = 1024, in_chans: int = 3):
+    def __init__(self, patch_size: int = 16, embed_dim: int = 1024, in_chans: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch_size = patch_size
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size, compute_dtype=dtype)
 
     def forward(self, images):
         """images [B, H, W, 3] -> tokens [B, N, C], pos [B, N, 2]."""

@@ -13,6 +13,12 @@ word embeddings that Mask2Former's language layers match against the object
 queries; ``seg_forward`` is the understanding-only path (no DPT or Gaussian
 heads) that the refer steps run. Train or eval mode (the adapter's BatchNorm)
 follows ``module.train()``.
+
+``cfg.dtype`` ("float32" or "bfloat16") is the compute dtype of the backbone
+and the adapter only, as in the JAX package (siu3r_tpu/models/model.py:56-70);
+parameters stay fp32. Mask2Former, the heads and the text embedding compute
+in fp32: the hooks into the heads and the adapter's levels are cast to fp32
+before them.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from siu3r_tpu_torch.models.adapter import CroCoViTAdapter
 from siu3r_tpu_torch.models.backbone import AsymmetricCroCo, AsymmetricCroCoMulti
 from siu3r_tpu_torch.models.gaussian_adapter import adapt_gaussians
 from siu3r_tpu_torch.models.heads.dpt import DPTHead, dpt_hooks, postprocess_pts3d
+from siu3r_tpu_torch.models.layers import DTYPES
 from siu3r_tpu_torch.models.mask2former.model import SegOutput, VideoMask2Former
 from siu3r_tpu_torch.models.mask2former.postprocess import (
     panoptic_segmentation,
@@ -58,8 +65,8 @@ class SIU3RModel(nn.Module):
         super().__init__()
         if cfg.num_views < 2:
             raise ValueError(f"the model takes at least 2 views, not {cfg.num_views}")
-        if cfg.dtype != "float32":
-            raise NotImplementedError("siu3r_tpu_torch computes in float32 only")
+        if cfg.dtype not in DTYPES:
+            raise ValueError(f"model.dtype is one of {sorted(DTYPES)}, not {cfg.dtype!r}")
         dev = resolve_device(device)
         self.cfg = cfg
         with torch.device("meta"):
@@ -69,12 +76,14 @@ class SIU3RModel(nn.Module):
 
     def _build_modules(self, cfg: ModelCfg) -> None:
         c = cfg.croco
-        self.backbone = AsymmetricCroCo(c) if cfg.num_views == 2 else AsymmetricCroCoMulti(c)
+        dt = DTYPES[cfg.dtype]
+        self.backbone = AsymmetricCroCo(c, dt) if cfg.num_views == 2 else AsymmetricCroCoMulti(c, dt)
         d = c.enc_depth
         self.adapter = CroCoViTAdapter(
             embed_dim=c.enc_embed_dim,
             patch_size=c.patch_size,
             interaction_indexes=tuple(d * k // 4 - 1 for k in (1, 2, 3, 4)),
+            dtype=dt,
         )
         self.mask2former = VideoMask2Former(cfg.mask2former, in_channels=c.enc_embed_dim)
         tok = (c.enc_embed_dim,) + (c.dec_embed_dim,) * 3
@@ -102,7 +111,8 @@ class SIU3RModel(nn.Module):
 
     def _features(self, images: torch.Tensor, intrinsics: torch.Tensor):
         """Backbone and adapter over every view: (the per-view decoder
-        outputs for the heads, the adapter's 4 levels [B, V, H_l, W_l, C])."""
+        outputs for the heads, the adapter's 4 levels [B, V, H_l, W_l, C] in
+        fp32 for Mask2Former)."""
         b, v, h, w, _ = images.shape
         out = self.backbone(images, intrinsics)
         if self.cfg.num_views == 2:
@@ -110,11 +120,11 @@ class SIU3RModel(nn.Module):
             imgs_flat = torch.cat([images[:, 0], images[:, 1]], dim=0)
             dec_per_view = [out.dec1, out.dec2]
             feats = self.adapter(imgs_flat, all_feat)
-            return dec_per_view, [torch.stack([f[:b], f[b:]], dim=1) for f in feats]
+            return dec_per_view, [torch.stack([f[:b], f[b:]], dim=1).float() for f in feats]
         all_feat = [f.reshape(b * v, *f.shape[2:]) for f in out.all_feat]
         dec_per_view = [[d[:, vi] for d in out.dec_feat] for vi in range(v)]
         feats = self.adapter(images.reshape(b * v, h, w, 3), all_feat)
-        return dec_per_view, [f.reshape(b, v, *f.shape[1:]) for f in feats]
+        return dec_per_view, [f.reshape(b, v, *f.shape[1:]).float() for f in feats]
 
     def _segment(self, multi_scale_feat, image_size, word_embeddings, text_tokens):
         """Mask2Former (with its language layers where words are given) and
@@ -145,7 +155,7 @@ class SIU3RModel(nn.Module):
         for vi, dec in enumerate(dec_per_view):
             center_head = self.downstream_head1 if vi == 0 else self.downstream_head2
             param_head = self.gaussian_param_head1 if vi == 0 else self.gaussian_param_head2
-            tokens = [dec[i] for i in hooks]
+            tokens = [dec[i].float() for i in hooks]
             pts_list.append(postprocess_pts3d(center_head(tokens, None, image_size)))
             raw_list.append(param_head(tokens, images[:, vi], image_size))
         pts3d = torch.stack(pts_list, dim=1)  # [B, V, H, W, 3]
@@ -231,6 +241,21 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     bound = p.shape[1] ** -0.5
                     nn.init.uniform_(p, -bound, bound, generator=generator)
                     nn.init.uniform_(mod.in_proj_bias, -bound, bound, generator=generator)
+    return model
+
+
+def set_compute_dtype(model: SIU3RModel, dtype: str) -> SIU3RModel:
+    """Switch ``model``'s compute dtype ("float32" or "bfloat16") in place:
+    the backbone's and the adapter's layers compute in it from the next call
+    on, as a model built with ``model.dtype: <dtype>``; the (fp32)
+    parameters and buffers are untouched. Returns ``model``."""
+    if dtype not in DTYPES:
+        raise ValueError(f"model.dtype is one of {sorted(DTYPES)}, not {dtype!r}")
+    for part in (model.backbone, model.adapter):
+        for mod in part.modules():
+            if hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = DTYPES[dtype]
+    model.cfg = dataclasses.replace(model.cfg, dtype=dtype)
     return model
 
 

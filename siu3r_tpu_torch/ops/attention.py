@@ -1,7 +1,10 @@
 """Multi-head attention, counterpart of ``siu3r_tpu/ops/attention.py``.
 
 ``attention`` is the plain version (the counterpart of ``xla_attention``):
-fp32 logits and accumulation, masked keys set to -1e30. ``rope_attention`` and
+fp32 logits and accumulation, masked keys set to -1e30, the softmax in fp32
+and its probabilities rounded to v's dtype before p v (a no-op in fp32; in
+bf16 the multi-view bank and every masked call round as the JAX package
+does), the output in q's dtype. ``rope_attention`` and
 ``multi_head_attention`` follow the JAX dispatch rule: with no per-query
 ``mask`` they take the hand-written attention kernel
 (``kernels/flash_attention.py``); with a ``mask`` (Mask2Former's masked
@@ -39,8 +42,8 @@ def attention(
         if mask.dim() == 3:
             mask = mask[:, None]
         logits = torch.where(mask, logits, neg)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float())
     return out.to(q.dtype)
 
 
@@ -74,14 +77,14 @@ def rope_attention(
 ) -> torch.Tensor:
     """RoPE2D on q/k, then attention. With no ``mask`` the rotation runs
     inside the attention kernel, from the cos/sin tables of
-    ``rope2d_cos_sin``."""
+    ``rope2d_cos_sin`` in q's dtype (kernel 1b on bf16)."""
     from siu3r_tpu_torch.kernels.flash_attention import flash_attn
 
     d = q.shape[-1]
     scale = d**-0.5
     if mask is None:
-        qrope = rope2d_cos_sin(qpos, d, base=rope_base)
-        krope = qrope if kpos is qpos else rope2d_cos_sin(kpos, d, base=rope_base)
+        qrope = rope2d_cos_sin(qpos, d, base=rope_base, dtype=q.dtype)
+        krope = qrope if kpos is qpos else rope2d_cos_sin(kpos, d, base=rope_base, dtype=q.dtype)
         return flash_attn(q, k, v, scale, qrope=qrope, krope=krope)
     q = rope2d(q, qpos, base=rope_base)
     k = rope2d(k, kpos, base=rope_base)

@@ -64,8 +64,8 @@ def multi_scale_deformable_attention(
 ) -> torch.Tensor:
     """value [B, Len_in, H, D] (Len_in = sum of h*w over levels);
     sampling_locations [B, Lq, H, L, P, 2] in [0, 1] as (x, y);
-    attention_weights [B, Lq, H, L, P]. Returns [B, Lq, H*D], accumulated
-    in fp32."""
+    attention_weights [B, Lq, H, L, P]. Returns [B, Lq, H*D] in value's
+    dtype, sampled and accumulated in fp32."""
     b, _, n_heads, head_dim = value.shape
     _, lq, _, _, n_points, _ = sampling_locations.shape
     out = torch.zeros((b, n_heads, lq, head_dim), dtype=torch.float32, device=value.device)

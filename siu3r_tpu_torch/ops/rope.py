@@ -11,9 +11,12 @@ from __future__ import annotations
 import torch
 
 
-def rope2d_cos_sin(positions: torch.Tensor, head_dim: int, base: float = 100.0):
-    """positions [B, N, 2] integer (y, x) -> cos, sin [B, N, D] fp32, laid out
-    so that ``out = tokens * cos + _rotate_half2(tokens) * sin``."""
+def rope2d_cos_sin(positions: torch.Tensor, head_dim: int, base: float = 100.0,
+                   dtype: torch.dtype = torch.float32):
+    """positions [B, N, 2] integer (y, x) -> cos, sin [B, N, D], laid out so
+    that ``out = tokens * cos + _rotate_half2(tokens) * sin``; computed in
+    fp32, then rounded to ``dtype`` (bf16 for the bf16 kernel, as the JAX
+    package casts the tables to q's dtype)."""
     if head_dim % 4 != 0:
         raise ValueError(f"head_dim must be divisible by 4, got {head_dim}")
     half = head_dim // 2
@@ -23,7 +26,7 @@ def rope2d_cos_sin(positions: torch.Tensor, head_dim: int, base: float = 100.0):
     freqs = positions.to(torch.float32)[..., None] * inv_freq  # [B, N, 2, D/4]
     freqs = torch.cat([freqs, freqs], dim=-1)  # [B, N, 2, D/2]
     angles = torch.cat([freqs[..., 0, :], freqs[..., 1, :]], dim=-1)  # [B, N, D]
-    return torch.cos(angles), torch.sin(angles)
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
 
 
 def _rotate_half2(x: torch.Tensor) -> torch.Tensor:
@@ -35,7 +38,8 @@ def _rotate_half2(x: torch.Tensor) -> torch.Tensor:
 def rope2d_from_cos_sin(
     tokens: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 ) -> torch.Tensor:
-    """tokens [B, H, N, D]; cos/sin [B, N, D]."""
+    """tokens [B, H, N, D]; cos/sin [B, N, D], cast to the tokens' dtype. In
+    bf16 each product and the sum round to bf16."""
     cos = cos[:, None].to(tokens.dtype)
     sin = sin[:, None].to(tokens.dtype)
     return tokens * cos + _rotate_half2(tokens) * sin
