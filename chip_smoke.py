@@ -6,11 +6,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. environment: versions, the card's name and power limit, TF32 off;
   2. build: nvcc builds the CUDA kernels from siu3r_tpu_torch/csrc;
   3. kernels: the attention kernel's registers (ptxas) and, in its SASS,
-     tensor-core TF32 products and asynchronous copies (kernel 1b: bf16
-     products, ldmatrix and asynchronous copies); each kernel against
-     its plain PyTorch version at the main path's shapes and at edge cases,
-     with times, bounds (attention at the 3xTF32 tensor-core rate, with the
-     fp32 figure beside it), blocks per launch and, for attention, one
+     tensor-core TF32 products and asynchronous copies (kernel 1b, its
+     resident variant and its streamed one: bf16 products, ldmatrix and
+     asynchronous copies); each kernel
+     against its plain PyTorch version at the main path's shapes and at
+     edge cases (kernel 1b failing unless the variant it expects ran: the
+     resident one, K and V of a head in shared memory, but for longer key
+     sets),
+     with times (kernels and yardsticks by the profiler's device time, plain
+     versions by CUDA events around a loop queued behind a sleep,
+     ``event_ms``), bounds (attention at the 3xTF32 tensor-core rate, with
+     the fp32 figure beside it), blocks per launch and, for attention, one
      PyTorch call computing the same function as a yardstick; MSDA per
      case, each case failing unless the kernel it expects ran (the staged
      one, the head's value slice in shared memory, at the main path's shapes;
@@ -35,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      model's attention and deformable-attention call sites (every MSDA
      launch the staged kernel) and no host sync inside it, then timed;
      bf16_forward: the same weights computing in bf16 (kernel 1b, the bf16
-     RoPE attention, in place of kernel 1), against the fp32 forward with
+     RoPE attention, in place of kernel 1, every launch its resident
+     variant), against the fp32 forward with
      the JAX package's bounds (means 5%, labels 90%), timed beside it, the
      model kernels held against their plain versions on its own inputs;
   6. eval step: ``Pipeline.eval_step`` at full width (the forward, then RGB,
@@ -117,7 +124,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      on phase 20's directory gives its results.json value for value;
  22. train_cli: ``python -m siu3r_tpu_torch.cli.train --config
      configs/scannet.yaml`` (its own process) at full width (the depth cut
-     to 6 encoder and 3 + 3 decoder blocks) and B = 3 with
+     to 4 encoder and 2 + 2 decoder blocks) and B = 3 with
      gradient accumulation k = 2 for 4 steps from a training state of biased
      weights W (finite records, train_viz PNGs, one checkpoint whose heads
      moved from W by more than their decay), then ``--resume`` of it for one
@@ -134,7 +141,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      sweep's files, written once, its results within phase 20's limits,
      each rank's launches;
  24. dp_train (after train_cli): two ranks over gloo, configs/scannet.yaml
-     at full width with the depth cut to 6 encoder and 3 + 3 decoder
+     at full width with the depth cut to 4 encoder and 2 + 2 decoder
      blocks (as in phases 25 to 27), a global batch of 2, two data-parallel steps with
      injected sample points, held against a one-process oracle on the card;
      each rank's launches, step ms, peak memory, all-reduce bytes and ms;
@@ -202,6 +209,8 @@ PEAK_BF16_FLOPS = 989e12
 # and cycle where the fp32 peak counts an FMA as two (Hopper architecture
 # white paper): 132 SMs x 64 x 1.98 GHz
 PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
+# the SM clock at its maximum, 1.98 GHz: converts ``event_ms``'s sleep to cycles
+SLEEP_CYCLES_PER_S = 1.98e9
 ATTN_ATOL = 2e-5
 # kernel 1b against its bf16 plain version: one bf16 ulp of the plain
 # version's value elementwise, and at least 2^-8 (the ulp of [1/2, 1));
@@ -272,8 +281,8 @@ def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False,
     one of its substrings (None without ``parts``); elapsed ms comes from
     CUDA events around the loop and includes the gaps where the card waits
     for the host to launch (for a small kernel, the wrapper's cost); without
-    ``events`` (a plain version or a yardstick, whose device time alone is
-    read) it is not taken, and None.
+    ``events`` (a yardstick, whose device time alone is read) it is not
+    taken, and None. Plain versions are not timed here but by ``event_ms``.
 
     A short trace can come back empty, and one of many launches cut short
     (CUPTI delivers its records late, or drops them): an empty trace is
@@ -282,9 +291,9 @@ def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False,
     multiple of ``iters`` times (each call launches the same kernels), or
     if its entries' counts equal the previous trace's (launches that vary
     from call to call); after five short ones, the last is taken with each
-    entry's mean time a launch if no entry lost a tenth of its records. A
-    plain version's trace of thousands of launches is taken as it comes:
-    its time may be short of the truth."""
+    entry's mean time a launch if no entry lost a tenth of its records, and
+    else raises. Yardsticks (SDPA, the bank attention) are timed with
+    ``whole`` too, so that a cut-short trace cannot lower their figure."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -328,6 +337,32 @@ def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False,
         return sum(mean_ms(e) for e in rows), elapsed, part_ms
     raise RuntimeError(f"the profiler recorded no whole trace of {iters} calls: "
                        f"{[(e.key[:60], e.count) for e in rows if e.count % iters]} (of {len(rows)} entries)")
+
+
+def event_ms(fn, iters: int) -> float:
+    """ms per call over ``iters`` back-to-back calls, after one warm call, by
+    CUDA events around the loop: the card's clock from the first launch to
+    the end of the last. The loop is queued behind a sleep on the card as
+    long as twice the host's time to issue it (at most 0.2 s), so that the
+    card does not wait for the host's launches where the host can run
+    ahead; a host sync inside ``fn`` counts. No lost profiler record can
+    shorten it, and it needs no retries: every plain version's ``plain_ms``
+    is timed so, many launches a call as most of them are."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * issue_s * iters + 1e-3, 0.2) * SLEEP_CYCLES_PER_S))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def larger(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
@@ -443,7 +478,10 @@ def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None
     inputs in ``dtype``, or on ``inputs`` (q, k, v, qrope, krope, kv_mask)
     taken from a run of the model (``case`` then only describes their
     shapes, and q's dtype is the dtype). fp32 within ATTN_ATOL; bf16 (kernel
-    1b) within one bf16 ulp of the plain version's output."""
+    1b) within one bf16 ulp of the plain version's output, and failing
+    unless the variant ``ATTN_BF16_VARIANT`` expects for ``name`` ran (the
+    resident one where it names none)."""
+    from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.kernels.flash_attention import flash_attn, flash_attn_plain, launch_config
     from siu3r_tpu_torch.ops.rope import rope2d_from_cos_sin
 
@@ -452,11 +490,17 @@ def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None
     scale = scale or case[4] ** -0.5
     kern = lambda: flash_attn(q, k, v, scale, qrope=qrope, krope=krope, kv_mask=kv_mask)
     plain = lambda: flash_attn_plain(q, k, v, scale, qrope, krope, kv_mask)
+    before = dict(_build.variant_counts)
     out = kern()
+    variant = [v for v, n in _build.variant_counts.items() if n > before.get(v, 0)]
     ref = plain()
     torch.cuda.synchronize()
     if out.dtype != dtype:
         raise AssertionError(f"attention {name} {case}: output {out.dtype} for {dtype} inputs")
+    if dtype == torch.bfloat16:
+        expected = ATTN_BF16_VARIANT.get(name, "flash_attn_rope_bf16.resident")
+        if variant != [expected]:
+            raise AssertionError(f"attention {name} {case}: the {variant} kernel ran, expected {expected}")
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     if dtype == torch.bfloat16:
@@ -466,7 +510,7 @@ def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None
     elif not math.isfinite(err) or err > ATTN_ATOL:
         raise AssertionError(f"attention {name} {case}: max_abs_err {err} > {ATTN_ATOL}")
     ms, elapsed, _ = time_ms(kern, iters, whole=True)
-    plain_ms = time_ms(plain, max(3, iters // 4), events=False)[0]
+    plain_ms = event_ms(plain, max(3, iters // 4))
     lib_ms = None
     if kv_mask is None:
         qr = rope2d_from_cos_sin(q, *qrope) if qrope is not None else q
@@ -474,13 +518,14 @@ def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters, whole=True,
                          events=False)[0]
     bnd = _attn_bound(case, dtype)
-    blocks, threads, smem = launch_config(*case[:3], case[4], case[5], dtype)
+    blocks, threads, smem = launch_config(*case[:5], case[5], dtype)
     bf16 = dtype == torch.bfloat16
-    log("kernel", f"{name} {case[:5]} rope={case[5]} mask={case[6]}{' bf16' if bf16 else ''}: max_abs_err "
-                  f"{err:.3g} (bit-equal {(diff == 0).float().mean().item():.4f}) "
+    log("kernel", f"{name} {case[:5]} rope={case[5]} mask={case[6]}{' bf16 ' + variant[0] if bf16 else ''}: "
+                  f"max_abs_err {err:.3g} (bit-equal {(diff == 0).float().mean().item():.4f}) "
                   f"ms {ms:.5f} (elapsed {elapsed:.5f}) plain_ms {plain_ms:.5f} library_ms {lib_ms} "
                   f"bound_ms {bnd['bound_ms']:.5f} ({bnd['bound_by']}, {'bf16' if bf16 else '3xTF32'}; fp32 SIMT "
-                  f"{bnd['bound_fp32_ms']:.5f}); {blocks} blocks of {threads} threads, {smem} B shared")
+                  f"{bnd['bound_fp32_ms']:.5f}); {ms * 1e3:.2f} us a launch on {blocks} blocks of {threads} "
+                  f"threads, {smem} B shared")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, blocks=blocks, **bnd)
 
 
@@ -544,7 +589,7 @@ def check_msda(name, case, iters, gen, inputs=None):
     if not math.isfinite(err) or err > MSDA_ATOL:
         raise AssertionError(f"msda {name}: max_abs_err {err} > {MSDA_ATOL}")
     ms, elapsed, _ = time_ms(kern, iters, whole=True)
-    plain_ms = time_ms(plain, max(3, iters // 4), events=False)[0]
+    plain_ms = event_ms(plain, max(3, iters // 4))
     nbytes, flops = _msda_cost(case, loc)
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
     b_ms, b_by = larger(bytes_ms, ops_ms)
@@ -596,11 +641,20 @@ ATTN_BF16_EDGE = {
     "nq17_d32": (2, 4, 17, 100, 32, True, None),
     "one_query_one_key": (1, 2, 1, 1, 64, True, None),
     "one_key_d32": (2, 3, 70, 1, 32, True, None),
-    # B x H far below the SM count: the 2-warp blocks
+    # B x H far below the SM count: the keys split over two warps
     "few_heads": (1, 2, 257, 257, 64, True, None),
-    # the 8-view encoder's batch of views: 4-warp blocks
+    # the 8-view encoder's batch of views: one warp a row group
     "eight_views": (8, 16, 257, 257, 64, True, None),
+    # K, V and pass 1's record past a block's shared memory (320 keys at
+    # D = 64, 400 at D = 32): the streamed kernel
+    "long_keys_d64": (1, 4, 64, 1100, 64, True, None),
+    "long_keys_d32": (1, 2, 40, 1500, 32, True, None),
 }
+# the kernel 1b variant each case must take (``_build.variant_counts``); every
+# other case, the main path's three and the model's own inputs included,
+# takes the resident one
+ATTN_BF16_VARIANT = {f"bf16 {name}": "flash_attn_rope_bf16.streamed" for name in ATTN_BF16_EDGE
+                     if name.startswith("long_keys")}
 # (B, Lq, H, D, P, levels, loc lo, loc hi, integer points)
 MSDA_MAIN = {
     "adapter": ((2, 1344, 16, 64, 4, ((16, 16),), -0.05, 1.05, False), 6),
@@ -624,7 +678,8 @@ MSDA_VARIANT = {name: "msda.global" for name in MSDA_EDGE if name.startswith("gl
 
 
 ATTN_KERNEL = "flash_attn_fwd_kernel"
-ATTN_BF16_KERNEL = "flash_attn_rope_bf16_kernel"
+ATTN_BF16_KERNEL = "flash_attn_rope_bf16_resident_kernel"  # kernel 1b where K, V and the record fit
+ATTN_BF16_STREAMED = "flash_attn_rope_bf16_kernel"  # and for longer key sets
 
 
 def log_ptxas(phase: str, kernel: str) -> None:
@@ -665,23 +720,26 @@ def check_attention_build() -> None:
         log("kernels", f"SASS {body[0][:70]}: {mma} tensor-core TF32 instructions, {copies} async copies")
         if not mma or not copies:
             raise AssertionError(f"{body[0]}: no tensor-core TF32 product ({mma}) or async copy ({copies}) in the SASS")
-    # kernel 1b: bf16 products (HMMA.16816.F32.BF16), V's fragments by
-    # ldmatrix (LDSM), the tiles by cp.async (LDGSTS)
-    log_ptxas("kernels", ATTN_BF16_KERNEL)
-    functions = [f for f in sass.split("Function : ")[1:] if f.startswith("_Z") and ATTN_BF16_KERNEL in f.split()[0]]
-    if len(functions) != 4:
-        raise AssertionError(f"cuobjdump -sass shows {len(functions)} instantiations of {ATTN_BF16_KERNEL}, not 4")
-    for f in functions:
-        body = f.splitlines()
-        mma = sum("HMMA" in x and "BF16" in x for x in body)
-        other_mma = sum(("HMMA" in x or "HGMMA" in x) and "BF16" not in x for x in body)
-        ldsm = sum("LDSM" in x for x in body)
-        copies = sum("LDGSTS" in x for x in body)
-        log("kernels", f"SASS {body[0][:70]}: {mma} bf16 HMMA instructions ({other_mma} other tensor-core), "
-                       f"{ldsm} ldmatrix, {copies} async copies")
-        if not mma or other_mma or not ldsm or not copies:
-            raise AssertionError(f"{body[0]}: bf16 HMMA {mma}, other tensor-core {other_mma}, LDSM {ldsm}, "
-                                 f"LDGSTS {copies} in the SASS")
+    # kernel 1b: the resident kernel and the streamed one, each in two head
+    # dims and two layouts; bf16 products (HMMA.16816.F32.BF16), V's fragments by
+    # ldmatrix (LDSM), K and V by asynchronous copies (LDGSTS for cp.async;
+    # UBLKCP or UTMALDG for bulk copies)
+    for kernel, count in ((ATTN_BF16_KERNEL, 4), (ATTN_BF16_STREAMED, 4)):
+        log_ptxas("kernels", kernel)
+        functions = [f for f in sass.split("Function : ")[1:] if f.startswith("_Z") and kernel in f.split()[0]]
+        if len(functions) != count:
+            raise AssertionError(f"cuobjdump -sass shows {len(functions)} instantiations of {kernel}, not {count}")
+        for f in functions:
+            body = f.splitlines()
+            mma = sum("HMMA" in x and "BF16" in x for x in body)
+            other_mma = sum(("HMMA" in x or "HGMMA" in x) and "BF16" not in x for x in body)
+            ldsm = sum("LDSM" in x for x in body)
+            copies = sum(any(op in x for op in ("LDGSTS", "UBLKCP", "UTMALDG")) for x in body)
+            log("kernels", f"SASS {body[0][:70]}: {mma} bf16 HMMA instructions ({other_mma} other tensor-core), "
+                           f"{ldsm} ldmatrix, {copies} async copies")
+            if not mma or other_mma or not ldsm or not copies:
+                raise AssertionError(f"{body[0]}: bf16 HMMA {mma}, other tensor-core {other_mma}, LDSM {ldsm}, "
+                                     f"async copies {copies} in the SASS")
 
 
 def _model_kernel_totals() -> dict:
@@ -796,7 +854,7 @@ def check_bin(name, proj, k, iters) -> dict:
         res.update({f"{p}_ms": ms for p, ms in parts.items()})
         if not all(parts[p] > 0 for p in BIN_KERNELS):
             raise RuntimeError(f"the profiler's trace misses a binning kernel: {parts}")
-        res["plain_ms"] = time_ms(plain, max(3, iters // 4), events=False)[0]
+        res["plain_ms"] = event_ms(plain, max(3, iters // 4))
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops, PEAK_INT32_OPS)
     log("kernel", f"bin {name} views={proj.depth.shape[0]} G={proj.depth.shape[1]} K={k}: exact, "
                   f"mean count {res['mean_count']:.1f}, share at K {res['at_k']:.3f}"
@@ -954,7 +1012,7 @@ def check_raster(name, table, counts, params, colors, iters) -> dict:
         nbytes, ops = _raster_cost(table, counts, colors, s, work)
         res["spread"] = _tile_spread(work, counts)
         res["ms"], res["elapsed"], _ = time_ms(kern, iters, whole=True)
-        res["plain_ms"] = time_ms(plain, max(3, iters // 4), events=False)[0]
+        res["plain_ms"] = event_ms(plain, max(3, iters // 4))
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
     log("kernel", f"raster {name} views={table.shape[0]} K={table.shape[-1]} C={colors.shape[-1]}: max_abs_err "
                   f"{err:.3g} (depth {depth_err:.3g}), chunks swept per live tile {res['mean_swept']:.2f}, "
@@ -1158,7 +1216,7 @@ def check_raster_bwd(name, table, counts, params, colors, iters, gen) -> dict:
         nbytes, ops = _raster_bwd_cost(table, counts, params, colors, swept, work)
         res["spread"] = _tile_spread(work, counts)
         res["ms"], res["elapsed"], _ = time_ms(kern, iters, whole=True)
-        res["plain_ms"] = time_ms(plain, max(2, iters // 10), events=False)[0]
+        res["plain_ms"] = event_ms(plain, max(2, iters // 10))
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
     log("kernel", f"raster_bwd {name} views={n} K={k} C={c}: max_abs_err, atol and worst excess per part "
                   + ", ".join(f"{part} {e[0]:.3g}/{e[1]:.3g}/{e[2]:.3g}" for part, e in errs.items())
@@ -1511,13 +1569,17 @@ def expected_launches(cfg, words: bool = False) -> dict:
     }
 
 
-def check_msda_variants(n: int) -> None:
-    """Every MSDA launch of the counted run took the staged kernel."""
+def check_variants(expected: dict) -> None:
+    """Every MSDA launch of the counted run took the staged kernel, and every
+    kernel 1b launch the resident one (``expected``: the run's launches)."""
     from siu3r_tpu_torch.kernels import _build
 
+    want = {"msda.staged": expected["msda"]}
+    if expected.get("flash_attn_rope_bf16"):
+        want["flash_attn_rope_bf16.resident"] = expected["flash_attn_rope_bf16"]
     variants = dict(_build.variant_counts)
-    if variants != {"msda.staged": n}:
-        raise AssertionError(f"msda kernels {variants}: expected all {n} launches staged")
+    if variants != want:
+        raise AssertionError(f"kernel variants {variants}: expected {want}")
 
 
 def _device_breakdown(run, iters: int) -> tuple[float, list]:
@@ -1549,20 +1611,6 @@ def _kernel_kind(name: str) -> str | None:
     return None
 
 
-def _ops_by_device_time(run) -> list:
-    """The PyTorch operators of one ``run`` whose own kernels took the most
-    device time: (name, input shapes, ms), largest first (profiler trace of
-    host and device, shapes recorded)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
-        run()
-        torch.cuda.synchronize()
-    rows = [(e.key, str(e.input_shapes), e.self_device_time_total / 1e3)
-            for e in prof.key_averages(group_by_input_shape=True) if e.key.startswith("aten::")]
-    return sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])[:20]
-
-
 def _view_inputs(views: int, seed: int = 0, batch: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Seeded images [batch, views, 256, 256, 3] and the CLI's default intrinsics."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1574,8 +1622,9 @@ def _view_inputs(views: int, seed: int = 0, batch: int = 1) -> tuple[torch.Tenso
 def _counted_run(phase: str, run, expected: dict):
     """One warm-up, then one ``run`` with the launch counts set to 0 just
     before it and read just after, under a mode in which a host sync (a copy
-    to or from the host) raises; fails unless the counts are ``expected``
-    and every MSDA launch took the staged kernel. Returns the run's output."""
+    to or from the host) raises; fails unless the counts are ``expected``,
+    every MSDA launch took the staged kernel and every kernel 1b launch the
+    resident one. Returns the run's output."""
     from siu3r_tpu_torch.kernels import _build
 
     run()  # warm-up: cuDNN algorithm choice, allocator
@@ -1588,7 +1637,7 @@ def _counted_run(phase: str, run, expected: dict):
     launches = dict(_build.launch_counts)
     if launches != expected:
         raise AssertionError(f"{phase}: launches {launches} != expected {expected}")
-    check_msda_variants(expected["msda"])
+    check_variants(expected)
     return out
 
 
@@ -1731,7 +1780,7 @@ def _bank_attention(phase: str, run, dec_depth: int, iters: int, backward: bool 
     fwd_ms = train_ms = logits_bytes = 0.0
     for (qs, ks), (c, n) in shapes.items():
         args = {key: x.detach() if isinstance(x, torch.Tensor) else x for key, x in c.items() if key != "out"}
-        ms = time_ms(lambda: L.rope_attention(**args), iters, events=False)[0]
+        ms = time_ms(lambda: L.rope_attention(**args), iters, whole=True, events=False)[0]
         leaves = {key: args[key].clone().requires_grad_(True) for key in ("q", "k", "v")}
         cot = torch.randn(qs, device="cuda", dtype=args["q"].dtype)
 
@@ -1739,7 +1788,7 @@ def _bank_attention(phase: str, run, dec_depth: int, iters: int, backward: bool 
             out = L.rope_attention(**{**args, **leaves})
             return torch.autograd.grad(out, list(leaves.values()), cot)
 
-        both_ms = time_ms(fwd_bwd, max(3, iters // 2), events=False)[0] if backward else math.nan
+        both_ms = time_ms(fwd_bwd, max(3, iters // 2), whole=True, events=False)[0] if backward else math.nan
         fwd_ms += n * ms
         train_ms += n * both_ms
         logits_bytes = max(logits_bytes, 4.0 * qs[0] * qs[1] * qs[2] * ks[2])
@@ -2227,7 +2276,7 @@ def _train(phase: str, cfg, n_target: int, steps: int) -> dict:
     expected = {**expected_launches(mcfg), "bin": 1, "raster": 1, "raster_bwd": 1}
     if launches != expected:
         raise AssertionError(f"{phase}: train step launches {launches} != expected {expected}")
-    check_msda_variants(expected["msda"])
+    check_variants(expected)
     losses = run()
     values = {key: float(x) for key, x in losses.items()}
     if not all(math.isfinite(x) for x in values.values()):
@@ -2763,7 +2812,7 @@ def phase_refer_train() -> dict:
     expected = expected_launches(cfg.pipeline.model, words=True)
     if launches != expected:
         raise AssertionError(f"refer_train: train step launches {launches} != expected {expected}")
-    check_msda_variants(expected["msda"])
+    check_variants(expected)
     lap_syncs = sum(n for where, n in sync_sources.items() if "lap.py:" in where)
     values = {key: float(x) for key, x in run().items()}
     if set(values) != {"word_match", "total"} or not all(math.isfinite(x) for x in values.values()):
@@ -3322,10 +3371,12 @@ def phase_evaluate() -> dict:
 # the data-parallel training phases (dp_train, nccl, zero1_train,
 # dp_train_cli), which measure correctness and memory, not speed, and the
 # training loop (train_cli) run their models at every width with the depth
-# cut to 6 encoder and 3 + 3 decoder blocks (of 24 and 12 + 12): shorter
-# model builds, steps, all-reduces and checkpoints make room for the bf16
-# phases in the script's time; dp_validate sweeps the full model
-CUT_DEPTH = dict(enc_depth=6, dec_depth=3)
+# cut to 4 encoder and 2 + 2 decoder blocks (of 24 and 12 + 12; 6 and 3 + 3
+# took the script past its 1200 s on a slow host): shorter model builds,
+# steps, all-reduces and checkpoints; dp_validate sweeps the full model. 4 is
+# the least encoder depth whose adapter interaction indexes (d k / 4 - 1)
+# are all blocks
+CUT_DEPTH = dict(enc_depth=4, dec_depth=2)
 
 
 def _cut_depth(cfg):
@@ -3502,7 +3553,7 @@ def phase_train_cli() -> dict:
     expected = {**expected_launches(cfg.pipeline.model), "bin": 1, "raster": 1, "raster_bwd": 1}
     if launches != expected:
         raise AssertionError(f"train_cli: micro-step launches {launches} != expected {expected}")
-    check_msda_variants(expected["msda"])
+    check_variants(expected)
     lap_syncs = sum(n for where, n in sources.items() if "lap.py:" in where)
 
     # timed micro-steps, each recorded: every one must see the scene and
@@ -3536,7 +3587,6 @@ def phase_train_cli() -> dict:
                                               torch.Generator(device="cuda").manual_seed(9))}
     del calls, table, counts, rparams, colors
     device_ms, top = _device_breakdown(lambda: pipe.train_step(batches[0], gen), 1)
-    ops = _ops_by_device_time(lambda: pipe.train_step(batches[0], gen))
     if pipe.optimizer.mini_step == 0:
         pipe.train_step(batches[0], gen)  # save in the middle of an accumulation: the larger state
     state = tmp / "state.pt"
@@ -3554,7 +3604,7 @@ def phase_train_cli() -> dict:
                resumed_totals=[r["train/total"] for r in rrec], cli_checkpoint_gib=ckpt_bytes / 2**30,
                cli_moves=cli_moves, moves=moves, launches=launches, kernels=kernels, micro_step_median_s=med,
                micro_step_s=times, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=top,
-               top_ops_device_ms=ops, micro_steps_per_s=1.0 / med, peak_gib=peak, host_syncs=n_syncs,
+               micro_steps_per_s=1.0 / med, peak_gib=peak, host_syncs=n_syncs,
                lap_syncs=lap_syncs, sync_sources=sources, mean_alpha=list(alphas), swept_per_live_tile=list(swepts),
                state_gib=size / 2**30, save_s=save_s, restore_s=restore_s, sm_clock=[clock0, clock1])
     log("train_cli", f"this process from W, Pipeline.train_step at k=2, ViT-L 2-view 256x256 B=3 fp32 (2 + 4 views, "
@@ -3574,8 +3624,6 @@ def phase_train_cli() -> dict:
         for k, r in kernels.items()))
     for name, ms in top[:8]:
         log("train_cli", f"  device {ms:8.3f} ms  {name[:100]}")
-    for name, shapes, ms in ops[:8]:
-        log("train_cli", f"  op {ms:8.3f} ms  {name} {shapes}"[:220])
     del pipe, params, batches
     torch.cuda.empty_cache()
     return res

@@ -57,44 +57,96 @@
 // kv_mask == 0 get the logit -1e30 as in the plain version, so a row whose
 // keys are all masked averages v uniformly.
 //
-// Kernel 1b, `flash_attn_rope_bf16_kernel`: `_attn_rope_kernel` on bf16 q,
-// k, v (the backbone's attention under `model.dtype: bfloat16`), RoPE only,
-// no key mask. The same two products, each one
-// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` per fragment, fp32
-// accumulation. Bound at the main path's shapes (N = 257, D = 64): the
-// 4*N*N*D flops at the dense bf16 rate (989 TFLOP/s) take less time than the
-// bytes (q, k, v, the bf16 tables, out; 2 bytes each), so bytes; the kernel
-// is far from either. Where it rounds, following the JAX kernel on bf16
-// inputs (siu3r_tpu/ops/flash_attention.py:67-91):
+// Kernel 1b: `_attn_rope_kernel` (siu3r_tpu/ops/flash_attention.py:67) on
+// bf16 q, k, v (the backbone's attention under `model.dtype: bfloat16`),
+// RoPE only, no key mask. Both products are
+// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`, fp32 accumulation.
+// Bound at the main path's shapes (N = 257, D = 64): the 4*N*N*D flops at
+// the dense bf16 rate (989 TFLOP/s) take less time than the bytes (q, k, v,
+// the bf16 tables, out; 2 bytes each), so bytes: 0.0566 ms a two-view bf16
+// forward (72 launches). Where it rounds, following the JAX kernel on bf16
+// inputs (siu3r_tpu/ops/flash_attention.py:75-91):
 // - the rotation: the tables are bf16, and x * cos and rot(x) * sin are
 //   each rounded to bf16, then their sum, as PyTorch's bf16 ops (the plain
 //   version) round, two columns at a time (`mul.rn.bf16x2`, `add.rn.bf16x2`);
 //   XLA may keep the products in fp32 before the add, which moves a rotated
 //   value by at most one bf16 ulp;
 // - the scores stay in the fp32 accumulator, and scale (with log2 e, for
-//   exp2f) multiplies the accumulator, not q (no second rounding of q);
+//   exp2) multiplies the accumulator, not q (no second rounding of q);
 // - the probabilities: JAX rounds the *normalised* p to bf16 before p v. An
 //   online softmax rounds an unnormalised p and divides at the end, which
-//   rounds each p differently. So the kernel takes two passes over the key
-//   tiles: the first finds each row's max and sum of exp (online, fp32), the
-//   second recomputes the scores (the same products in the same order, so
-//   the same values), normalises p = exp(s - max) * (1 / sum) in fp32 (an
-//   IEEE division a score costs several times the exponential; the product
-//   with the rounded reciprocal is within an fp32 ulp of the quotient, far
-//   inside p's bf16 rounding), rounds it to bf16 and multiplies it into V.
-//   The first product is paid twice: at 257 keys that is 5 more tiles of
-//   q k^T, and K is rotated twice;
+//   rounds each p differently. So every row takes two passes over its keys:
+//   the first finds the row's max and sum of exp (online, fp32), the second
+//   forms the normalised p in fp32, rounds it to bf16 and multiplies it into
+//   V; the fp32 p is within a few fp32 ulps of the quotient, far inside its
+//   bf16 rounding (chip_smoke.py holds the output to one bf16 ulp of the
+//   plain version's, tests/test_torch_attn_bf16_schedule.py to 99% of it
+//   bit-equal, where rounding the unnormalised p scores 51%);
 // - the output: the fp32 accumulator rounded to bf16 once.
-// Layout: one warp per 16 query rows, 4 warps a block (2 when that gives
-// fewer blocks than SMs); K, V (pass 2 only) and the tile's cos/sin rows in
-// shared memory by 16-byte `cp.async` copies (8 bf16), two stages, the next
-// tile requested before this one is rotated and multiplied; rows
-// padded to D + 8 bf16 (D/2 + 4 words), so that the K fragment loads and the
-// V `ldmatrix` rows hit distinct banks. q is loaded into A fragments and
-// rotated in registers (its RoPE partner, DQ columns away, sits in the same
-// lane). The scores of column tiles 2i and 2i + 1, packed to bf16 pairs, are
-// the A fragment of the 16-key step i of p v as they stand; V's B fragments
-// come from `ldmatrix.x4.trans` (keys 2t, 2t + 1 of column g).
+//
+// What held the first design back (now the streamed kernel below):
+// each block walked its 64-key tiles twice in series, 10 steps at N = 257,
+// each waiting on its own `cp.async` group and passing two block barriers,
+// and rotated every K tile again in each pass with its cos/sin rows staged
+// in shared memory. The products were about 1% of a launch; the rest was
+// about 2 us of dependent latency a step (24.5 us an encoder launch, 22.1
+// a decoder one, where the 12 heads gave 108 blocks of 2 warps).
+//
+// The resident kernel, `flash_attn_rope_bf16_resident_kernel`, takes every
+// launch whose K, V and pass 1's record fit a block's shared memory:
+// - a block owns one (batch, head) and RG groups of 16 query rows. It
+//   requests, in the order they are needed, all of its head's K rows
+//   (16-byte `cp.async` copies, rows past Nk zero-filled up to a multiple of
+//   16 keys), the k cos/sin rows of its first rotation batch and q, read
+//   straight from global memory (the tables are one a batch, shared by its
+//   heads: L2 hits, no shared-memory stage), then all of its V rows, whose
+//   copies arrive on an mbarrier. Once K has landed it is rotated in place,
+//   once, eight columns and their RoPE partners a thread and item. The
+//   barrier after that is the block's last: each warp runs pass 1 from
+//   shared memory alone, waits on V's mbarrier and runs pass 2;
+// - rows stay padded to D + 8 bf16 (D / 2 + 4 words), so that the K
+//   fragment loads (key g, word t) and the V `ldmatrix` rows (8 keys, 16
+//   bytes each) hit distinct banks; at N = 257, D = 64 K and V take 78 KB;
+// - a warp walks its keys in 16-key chunks, four at a time (64 keys: 8
+//   column tiles of q k^T, 4 k-steps of p v), then a tail of two and of one,
+//   so a 257-key set costs 17 chunks and not 5 tiles of 64; only the chunk
+//   holding key Nk masks (keys past Nk take no part, -inf). In pass 1 the
+//   next four chunks' products are issued before this tile's softmax. The
+//   scores enter exp2 as one fused multiply-add, s * sl2 - max with sl2 =
+//   scale * log2 e;
+// - pass 1 records what pass 2 needs in shared memory: each e =
+//   exp2(s * sl2 - m) of the warp's keys with m its tile's running max
+//   (fp32, 1 KB a chunk of 16 keys and rows) and m after each tile. Pass 2
+//   then takes p = e * f, f = exp2(m - max) * (1 / sum) once a tile and
+//   row, without q k^T or an exp2 a score (on an H100: 13.1 -> 11.3 us an
+//   encoder launch, 9.0 -> 8.4 a decoder one). With the record a 6-warp
+//   block takes 188 KB at N = 257, one block an SM. It fits up to 320 keys
+//   at D = 64 (400 at D = 32), the resident limit;
+// - two layouts: where the launch has as many 64-row blocks as SMs (the
+//   16-head encoder at B = 2), 6 row groups of one warp a block (96 blocks;
+//   4 row groups would make 160 blocks of 148 KB, two waves); else (the
+//   12-head decoder, few
+//   heads) 2 row groups of 2 warps that split the keys, contiguous and
+//   disjoint ranges of the chunks (108 blocks for the decoder). After pass 1
+//   the two exchange their rows' (max, sum) through shared memory behind a
+//   named barrier of the group's warps, and each merges them in the same
+//   order into the row's exact max and sum, so p is normalised with the
+//   global values before it is rounded, as in JAX; after pass 2, warp 1
+//   hands its partial fp32 accumulator to warp 0, which adds it and rounds
+//   once. Only the order of fp32 sums changes. More warps a block (6 x 2,
+//   5 x 2) spill registers and were slower on an H100.
+// Longer key sets take the streamed kernel, `flash_attn_rope_bf16_kernel`:
+// K, V (pass 2 only) and the tile's cos/sin rows in shared memory by 16-byte
+// `cp.async` copies (8 bf16), two stages, the next tile requested before
+// this one is rotated and multiplied, one warp per 16 query rows, 4 warps a
+// block (2 when that gives fewer blocks than SMs), the scores times scale
+// in the accumulator and exp2f(s - max). In both, q is loaded into A
+// fragments and rotated in registers (its RoPE partner, DQ columns away,
+// sits in the same lane); the scores of column tiles 2i and 2i + 1, packed
+// to bf16 pairs, are the A fragment of the 16-key step i of p v as they
+// stand; V's B fragments come from `ldmatrix.x4.trans` (keys 2t, 2t + 1 of
+// column g). Which variant runs follows from Nk and D alone
+// (`siu3r_flash_attn_bf16_variant`).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -607,6 +659,44 @@ __device__ __forceinline__ void cp_async16(uint16_t* smem, const uint16_t* gmem,
   cp_async16(reinterpret_cast<float*>(smem), reinterpret_cast<const float*>(gmem), valid);
 }
 
+// q: rows row0 + g and row0 + g + 8 (the tail clamped to a valid row, its
+// store skipped) in the A-fragment layout, rotated in registers: fragment
+// register r of k-step kk holds row g + 8 * (r & 1), columns
+// kk * 16 + 8 * (r >> 1) + 2t and + 1, and its RoPE partner (the column
+// DQ away) sits in the same lane: k-step kk ^ 1 at D = 64, register r ^ 2
+// at D = 32
+template <int D>
+__device__ __forceinline__ void load_q_bf16(const AttnBf16Params& p, int b, int h, int row0, int g, int t,
+                                            uint32_t (&qa)[D / 16][4]) {
+  constexpr int KS = D / 16;
+  constexpr int DQ = D / 4;
+  const int rows[2] = {min(row0 + g, p.Nq - 1), min(row0 + g + 8, p.Nq - 1)};
+  uint32_t qx[KS][4], qc[KS][4], qs[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rows[r & 1];
+      const int col = kk * 16 + 8 * (r >> 1) + 2 * t;
+      const long long at = ((long long)b * p.Nq + row) * D + col;
+      qx[kk][r] = *reinterpret_cast<const uint32_t*>(p.q + b * p.q_sb + h * p.q_sh + row * p.q_sn + col);
+      qc[kk][r] = *reinterpret_cast<const uint32_t*>(p.qcos + at);
+      qs[kk][r] = *reinterpret_cast<const uint32_t*>(p.qsin + at);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int pk = DQ == 16 ? kk ^ 1 : kk;
+      const int pr = DQ == 16 ? r : r ^ 2;
+      const bool first = DQ == 16 ? (kk & 1) == 0 : (r >> 1) == 0;  // quarter 0 or 2: takes -partner
+      const uint32_t other = first ? qx[pk][pr] ^ kSigns : qx[pk][pr];
+      qa[kk][r] = rotate_bf16x2(qx[kk][r], qc[kk][r], other, qs[kk][r]);
+    }
+  }
+}
+
 // s = q k^T over the 8 column tiles of a 64-key tile: s[j][e] is row
 // g + 8 * (e >> 1), key 8 * j + 2 * t + (e & 1). B's k index 2t, 2t + 1 is
 // one word of K's row, and 2t + 8, 2t + 9 the word 4 further on.
@@ -685,40 +775,8 @@ __global__ void __launch_bounds__(32 * RG) flash_attn_rope_bf16_kernel(const Att
 
   issue(0, 0);
 
-  // q: rows row0 + g and row0 + g + 8 (the tail clamped to a valid row, its
-  // store skipped) in the A-fragment layout, rotated in registers: fragment
-  // register r of k-step kk holds row g + 8 * (r & 1), columns
-  // kk * 16 + 8 * (r >> 1) + 2t and + 1, and its RoPE partner (the column
-  // DQ away) sits in the same lane: k-step kk ^ 1 at D = 64, register r ^ 2
-  // at D = 32
   uint32_t qa[KS][4];
-  {
-    const int rows[2] = {min(row0 + g, p.Nq - 1), min(row0 + g + 8, p.Nq - 1)};
-    uint32_t qx[KS][4], qc[KS][4], qs[KS][4];
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = rows[r & 1];
-        const int col = kk * 16 + 8 * (r >> 1) + 2 * t;
-        const long long at = ((long long)b * p.Nq + row) * D + col;
-        qx[kk][r] = *reinterpret_cast<const uint32_t*>(p.q + b * p.q_sb + h * p.q_sh + row * p.q_sn + col);
-        qc[kk][r] = *reinterpret_cast<const uint32_t*>(p.qcos + at);
-        qs[kk][r] = *reinterpret_cast<const uint32_t*>(p.qsin + at);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int pk = DQ == 16 ? kk ^ 1 : kk;
-        const int pr = DQ == 16 ? r : r ^ 2;
-        const bool first = DQ == 16 ? (kk & 1) == 0 : (r >> 1) == 0;  // quarter 0 or 2: takes -partner
-        const uint32_t other = first ? qx[pk][pr] ^ kSigns : qx[pk][pr];
-        qa[kk][r] = rotate_bf16x2(qx[kk][r], qc[kk][r], other, qs[kk][r]);
-      }
-    }
-  }
+  load_q_bf16<D>(p, b, h, row0, g, t, qa);
 
   float o[NT][4];
 #pragma unroll
@@ -862,6 +920,563 @@ int launch_bf16_warps(const AttnBf16Params& p, cudaStream_t stream) {
   return split_keys(p.B, p.H, p.Nq) ? launch_bf16<D, 2>(p, stream) : launch_bf16<D, 4>(p, stream);
 }
 
+// ------------------------------------------------------- kernel 1b, resident
+
+// A block of the resident kernel: RG row groups of 16 query rows, each
+// taken by KG warps over disjoint key ranges. kWide where the launch has at
+// least one block of 64 query rows per SM, else kSplit (`split_keys`, kernel
+// 1's rule).
+struct Bf16Layout {
+  int rg, kg;
+};
+constexpr Bf16Layout kWide{6, 1};
+constexpr Bf16Layout kSplit{2, 2};
+
+constexpr int kMaxBlockSmem = 232448;  // a block's dynamic shared memory on sm_90 (227 KB)
+
+// Its shared memory, in bytes: V's mbarrier (16 bytes); with KG > 1, per
+// row group the KG warps'
+// (max, sum) of its 16 rows [RG][KG][16][2] fp32 and the partial
+// accumulators of warps 1..KG-1 [RG][KG - 1][D / 2][32 lanes] fp32; then K
+// and V, [Nk rounded up to 16][D + 8] bf16 each; then each
+// warp's record of pass 1: the exp2(s - m) of its chunks, [chunks][2][32
+// lanes] float4 (1 KB a chunk), and the running max m of its rows after each
+// of its tiles, [tiles][32 lanes] float2.
+template <int D, int RG, int KG>
+struct ResidentSmem {
+  static constexpr int kStride = D + 8;
+  static constexpr int kBar = 16;  // V's mbarrier
+  static constexpr int kStats = KG > 1 ? RG * KG * 16 * 2 * 4 : 0;
+  static constexpr int kAccs = RG * (KG - 1) * (D / 2) * 32 * 4;
+  static constexpr int kKV = kBar + kStats + kAccs;  // K's offset
+  static constexpr int kPerKey = 2 * kStride * 2;
+  // the most chunks and tiles one warp takes
+  __host__ __device__ static constexpr int chunks(int nk) { return ((nk + 15) / 16 + KG - 1) / KG; }
+  __host__ __device__ static constexpr int tiles(int nk) { return chunks(nk) / 4 + 2; }
+  // the record's offset
+  __host__ __device__ static constexpr int cache(int nk) { return kKV + ((nk + 15) & ~15) * kPerKey; }
+  __host__ __device__ static constexpr int bytes(int nk) {
+    return cache(nk) + RG * KG * (chunks(nk) * 1024 + tiles(nk) * 256);
+  }
+};
+
+template <int D>
+using WideSmem = ResidentSmem<D, kWide.rg, kWide.kg>;
+template <int D>
+using SplitSmem = ResidentSmem<D, kSplit.rg, kSplit.kg>;
+
+// The most keys (a multiple of 16) that a block of either layout holds with
+// pass 1's record: 320 at D = 64, 400 at D = 32
+template <int D>
+constexpr int resident_keys() {
+  int nk = 16;
+  const auto fits = [](int n) {
+    return WideSmem<D>::bytes(n) <= kMaxBlockSmem && SplitSmem<D>::bytes(n) <= kMaxBlockSmem;
+  };
+  while (fits(nk + 16)) nk += 16;
+  return nk;
+}
+
+// kernel 1b's variants, as siu3r_flash_attn_bf16_variant reports them
+enum Bf16Variant { kResident = 1, kStreamed = 2 };
+
+// from Nk and D alone: resident where K, V and pass 1's record fit a block,
+// else streamed
+Bf16Variant bf16_variant(int Nk, int D) {
+  constexpr int kResident64 = resident_keys<64>(), kResident32 = resident_keys<32>();
+  return Nk <= (D == 64 ? kResident64 : kResident32) ? kResident : kStreamed;
+}
+
+// 2^x by the special function unit alone (`ex2.approx.ftz.f32`: exp2f's
+// own approximation, 2 ulp, without its rescaling of subnormal inputs and
+// results): results below 2^-126 are 0, where the row's largest is 1, far
+// inside p's bf16 rounding
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// the mbarrier's pending count falls by one when every cp.async this thread
+// has issued so far has landed
+__device__ __forceinline__ void cp_async_mbarrier_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// wait until the mbarrier has completed phase `parity`
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// a barrier of `threads` threads (whole warps) on hardware barrier `id` (0 is
+// __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The raw fp32 scores of NC 16-key chunks from key0 for a warp's 16 rows:
+// s[j][e] is row g + 8 * (e >> 1), key key0 + 8 * j + 2 * t + (e & 1). B's k
+// index 2t, 2t + 1 is one word of K's row, and 2t + 8, 2t + 9 the word 4
+// further on. Only issues the products: nothing here waits on them.
+template <int D, int NC>
+__device__ __forceinline__ void chunk_scores(const uint16_t* ks, int key0, const uint32_t (&qa)[D / 16][4],
+                                             float (&s)[2 * NC][4], int g, int t) {
+  constexpr int KST = D + 8;
+#pragma unroll
+  for (int j = 0; j < 2 * NC; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 2 * NC; ++j) {
+      const uint16_t* const row = ks + (key0 + j * 8 + g) * KST + kk * 16 + 2 * t;
+      mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(row), *reinterpret_cast<const uint32_t*>(row + 8));
+    }
+  }
+}
+
+// keys at or past nk take no part: -inf (only the chunk holding key nk - 1
+// has keys past it)
+template <int NC>
+__device__ __forceinline__ void mask_keys(float (&s)[2 * NC][4], int key0, int nk, int t) {
+  if (key0 + 16 * NC > nk) {
+#pragma unroll
+    for (int j = 0; j < 2 * NC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (key0 + j * 8 + 2 * t + (e & 1) >= nk) s[j][e] = -INFINITY;
+      }
+    }
+  }
+}
+
+// Pass 1's update over NC chunks of raw scores s: the online max m of rows g
+// and g + 8 in log2 units (the raw maximum times sl2 = scale * log2 e: the
+// product is monotonic, so this is the maximum of the scaled scores), this
+// lane's share l of their sums of e = exp2(s * sl2 - m) (the argument one
+// fused multiply-add) and each e to the warp's record of these
+// chunks (two float4 a chunk and lane). Maxima and sums by trees over the
+// column tiles.
+template <int NC>
+__device__ __forceinline__ void chunk_softmax(float (&s)[2 * NC][4], int key0, int nk, float sl2, float (&m)[2],
+                                              float (&l)[2], float4* record, int t, int lane) {
+  mask_keys<NC>(s, key0, nk, t);
+  float x[2 * NC][2];
+#pragma unroll
+  for (int j = 0; j < 2 * NC; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) x[j][r] = fmaxf(s[j][2 * r], s[j][2 * r + 1]);
+  }
+#pragma unroll
+  for (int w = NC; w >= 1; w /= 2) {
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) x[j][r] = fmaxf(x[j][r], x[j + w][r]);
+    }
+  }
+  float mx[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(m[r], x[0][r] * sl2);
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    l[r] *= exp2_ftz(m[r] - mx[r]);  // 0 on the first chunks (m = -inf)
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * NC; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = exp2_ftz(fmaf(s[j][e], sl2, -m[e >> 1]));
+    record[j * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) x[j][r] = s[j][2 * r] + s[j][2 * r + 1];
+  }
+#pragma unroll
+  for (int w = NC; w >= 1; w /= 2) {
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) x[j][r] += x[j + w][r];
+    }
+  }
+  l[0] += x[0][0];
+  l[1] += x[0][1];
+}
+
+// o += p v over the 16 keys from key: pr[jj][e] is p of row g + 8 * (e >> 1),
+// key + 8 * jj + 2 * t + (e & 1), rounded here to bf16; packed to pairs, it
+// is the A fragment of the step as it stands
+template <int D>
+__device__ __forceinline__ void pv_step(const uint16_t* vs, int key, const float (&pr)[2][4], float (&o)[D / 8][4],
+                                        int lane) {
+  constexpr int KST = D + 8;
+  const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[0][2], pr[0][3]),
+                          pack_bf16(pr[1][0], pr[1][1]), pack_bf16(pr[1][2], pr[1][3])};
+  // matrices 0, 1: keys key + 0..7 and + 8..15 at columns 16n..16n + 7 (B of
+  // output tile 2n); matrices 2, 3: the same at 16n + 8.. (tile 2n + 1)
+  const uint16_t* const vrow = vs + (key + (lane & 7) + ((lane >> 3) & 1) * 8) * KST + (lane >> 4) * 8;
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    uint32_t vb[4];
+    ldmatrix_x4_trans(vb, vrow + 16 * n);
+    mma_bf16(o[2 * n], pa, vb[0], vb[1]);
+    mma_bf16(o[2 * n + 1], pa, vb[2], vb[3]);
+  }
+}
+
+// Pass 2 over NC chunks from pass 1's record: p = e * f rounded to bf16,
+// where e = exp2(s * sl2 - m_tile) was recorded with the tile's running max and
+// f = exp2(m_tile - max) * inv is taken once a tile and row
+template <int D, int NC>
+__device__ __forceinline__ void chunk_pv_recorded(const float4* record, const uint16_t* vs, int key0,
+                                                  const float (&f)[2], float (&o)[D / 8][4], int lane) {
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    float pr[2][4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const float4 e = record[(2 * i + jj) * 32 + lane];
+      pr[jj][0] = e.x * f[0];
+      pr[jj][1] = e.y * f[0];
+      pr[jj][2] = e.z * f[1];
+      pr[jj][3] = e.w * f[1];
+    }
+    pv_step<D>(vs, key0 + 16 * i, pr, o, lane);
+  }
+}
+
+// K's rotation in place, in items of eight columns of quarter 0 or 2 and
+// their partners D / 4 further on, D / 16 items a key: item e is key j,
+// columns c0..c0 + 7
+template <int D>
+__device__ __forceinline__ void rotation_item(int e, int& j, int& c0) {
+  constexpr int DQ = D / 4;
+  j = e / (D / 16);
+  const int w = (e % (D / 16)) * 8;
+  c0 = (w / DQ) * 2 * DQ + w % DQ;
+}
+
+// a 257-key head's 1028 items at D = 64 in one batch of 128 threads
+constexpr int kRotBatch = 9;
+
+// the cos/sin rows of items e0, e0 + STEP, ... (N of them, those below
+// n_items) straight from global memory: the tables are one a batch, shared
+// by its heads (L2 hits); 16-byte loads, all in flight together
+template <int D, int N, int STEP>
+__device__ __forceinline__ void fetch_tables(const uint16_t* kcos, const uint16_t* ksin, int e0, int n_items,
+                                             uint4 (&tab)[N][4]) {
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int e = e0 + u * STEP;
+    if (e < n_items) {
+      int j, c0;
+      rotation_item<D>(e, j, c0);
+      const long long at = (long long)j * D + c0;
+      tab[u][0] = __ldg(reinterpret_cast<const uint4*>(kcos + at));
+      tab[u][1] = __ldg(reinterpret_cast<const uint4*>(ksin + at));
+      tab[u][2] = __ldg(reinterpret_cast<const uint4*>(kcos + at + D / 4));
+      tab[u][3] = __ldg(reinterpret_cast<const uint4*>(ksin + at + D / 4));
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 rotate_bf16x8(uint4 x, uint4 c, uint4 o, uint4 s, uint32_t sign) {
+  return make_uint4(rotate_bf16x2(x.x, c.x, o.x ^ sign, s.x), rotate_bf16x2(x.y, c.y, o.y ^ sign, s.y),
+                    rotate_bf16x2(x.z, c.z, o.z ^ sign, s.z), rotate_bf16x2(x.w, c.w, o.w ^ sign, s.w));
+}
+
+// rotate the K columns of items e0, e0 + STEP, ... with their fetched rows:
+// x0 * cos - x1 * sin at c0, x1 * cos + x0 * sin at c0 + D / 4
+template <int D, int N, int STEP>
+__device__ __forceinline__ void rotate_items(uint16_t* ks, int e0, int n_items, const uint4 (&tab)[N][4]) {
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int e = e0 + u * STEP;
+    if (e < n_items) {
+      int j, c0;
+      rotation_item<D>(e, j, c0);
+      uint4* const k0p = reinterpret_cast<uint4*>(ks + j * (D + 8) + c0);
+      uint4* const k1p = reinterpret_cast<uint4*>(ks + j * (D + 8) + c0 + D / 4);
+      const uint4 x0 = *k0p, x1 = *k1p;
+      *k0p = rotate_bf16x8(x0, tab[u][0], x1, tab[u][1], kSigns);
+      *k1p = rotate_bf16x8(x1, tab[u][2], x0, tab[u][3], 0u);
+    }
+  }
+}
+
+// RG row groups of 16 query rows, KG warps each. K and V of the block's head
+// in shared memory for the whole launch, K rotated once; then each warp's
+// two passes over its keys with no block barrier (see the note at the top).
+template <int D, int RG, int KG>
+__global__ void __launch_bounds__(32 * RG * KG) flash_attn_rope_bf16_resident_kernel(const AttnBf16Params p) {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  using S = ResidentSmem<D, RG, KG>;
+  constexpr int NT = D / 8;  // column tiles of the output
+  constexpr int CH = D / 8;  // 16-byte pieces of a row
+  constexpr int KST = S::kStride;
+  constexpr int kThreads = 32 * RG * KG;
+
+  extern __shared__ __align__(16) float smem[];
+  uint16_t* const ks = reinterpret_cast<uint16_t*>(smem + S::kKV / 4);
+  const int nkp = (p.Nk + 15) & ~15;
+  uint16_t* const vs = ks + nkp * KST;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int rg = tid / 32 / KG;  // this warp's row group
+  const int kg = tid / 32 % KG;  // and its key group in it
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int row0 = (blockIdx.x * RG + rg) * 16;
+  const bool active = row0 < p.Nq;  // uniform over the row group's warps
+
+  // V lands on an mbarrier that every thread's copies arrive on: the warps
+  // wait for it before pass 2, with no block barrier
+  uint64_t* const v_landed = reinterpret_cast<uint64_t*>(smem);
+  if (tid == 0) mbarrier_init(v_landed, kThreads);
+  __syncthreads();
+
+  // in the order they are needed: every row of K (16-byte copies, rows past
+  // Nk zero-filled, one commit group), the first batch of K's table rows
+  // and q, then every row of V
+  const uint16_t* const kbase = p.k + b * p.k_sb + h * p.k_sh;
+  const uint16_t* const vbase = p.v + b * p.v_sb + h * p.v_sh;
+  for (int e = tid; e < nkp * CH; e += kThreads) {
+    const int j = e / CH;
+    const int c = (e % CH) * 8;
+    const bool live = j < p.Nk;
+    cp_async16(ks + j * KST + c, kbase + (live ? j : 0) * p.k_sn + c, live);
+  }
+  cp_async_commit();
+  // K's rotation: kRotBatch items a thread at a time, their table rows in
+  // flight together
+  const int n_items = p.Nk * (D / 16);
+  const uint16_t* const kcos = p.kcos + (long long)b * p.Nk * D;
+  const uint16_t* const ksin = p.ksin + (long long)b * p.Nk * D;
+  uint4 tab[kRotBatch][4];
+  fetch_tables<D, kRotBatch, kThreads>(kcos, ksin, tid, n_items, tab);
+  uint32_t qa[D / 16][4];
+  load_q_bf16<D>(p, b, h, row0, g, t, qa);
+  for (int e = tid; e < nkp * CH; e += kThreads) {
+    const int j = e / CH;
+    const int c = (e % CH) * 8;
+    const bool live = j < p.Nk;
+    cp_async16(vs + j * KST + c, vbase + (live ? j : 0) * p.v_sn + c, live);
+  }
+  cp_async_commit();
+  cp_async_mbarrier_arrive(v_landed);
+
+  cp_async_wait_one();  // this thread's K copies
+  __syncthreads();      // every K row has landed
+#pragma unroll 1
+  for (int e0 = tid; e0 < n_items; e0 += kRotBatch * kThreads) {
+    if (e0 != tid) fetch_tables<D, kRotBatch, kThreads>(kcos, ksin, e0, n_items, tab);
+    rotate_items<D, kRotBatch, kThreads>(ks, e0, n_items, tab);
+  }
+  __syncthreads();  // K rotated: the last block barrier
+  if (!active) {
+    mbarrier_wait(v_landed, 0);  // no thread leaves while copies it issued are in flight
+    return;
+  }
+
+  // this warp's 16-key chunks: a contiguous share of the head's
+  const int chunks = nkp / 16;
+  const int c_lo = kg * chunks / KG;
+  const int c_hi = (kg + 1) * chunks / KG;
+  const float sl2 = p.scale * kLog2e;
+
+  // this warp's record of pass 1: its chunks' exp2(s - m), then
+  // m after each tile
+  const int warp = tid / 32;
+  float4* const record = reinterpret_cast<float4*>(reinterpret_cast<char*>(smem) + S::cache(p.Nk)) +
+                         warp * S::chunks(p.Nk) * 64;
+  float2* const tile_max = reinterpret_cast<float2*>(
+                               reinterpret_cast<char*>(smem) + S::cache(p.Nk) + RG * KG * S::chunks(p.Nk) * 1024) +
+                           warp * S::tiles(p.Nk) * 32 + lane;
+
+  // pass 1: each row's max and sum of exp2(s * sl2 - max), in log2 units.
+  // Full tiles of four chunks take two score sets in turn: the next tile's
+  // products are issued before this tile's softmax, which runs under them
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  int c = c_lo;
+  int tile = 0;
+  float sa[8][4], sb[8][4];
+  if (c + 4 <= c_hi) chunk_scores<D, 4>(ks, 16 * c, qa, sa, g, t);
+#pragma unroll 1
+  while (c + 4 <= c_hi) {
+    const bool next = c + 8 <= c_hi;
+    if (next) chunk_scores<D, 4>(ks, 16 * (c + 4), qa, sb, g, t);
+    chunk_softmax<4>(sa, 16 * c, p.Nk, sl2, m, l, record + (c - c_lo) * 64, t, lane);
+    tile_max[tile * 32] = make_float2(m[0], m[1]);
+    c += 4;
+    ++tile;
+    if (!next) break;
+    const bool after = c + 8 <= c_hi;
+    if (after) chunk_scores<D, 4>(ks, 16 * (c + 4), qa, sa, g, t);
+    chunk_softmax<4>(sb, 16 * c, p.Nk, sl2, m, l, record + (c - c_lo) * 64, t, lane);
+    tile_max[tile * 32] = make_float2(m[0], m[1]);
+    c += 4;
+    ++tile;
+    if (!after) break;
+  }
+  if (c + 2 <= c_hi) {
+    float s2[4][4];
+    chunk_scores<D, 2>(ks, 16 * c, qa, s2, g, t);
+    chunk_softmax<2>(s2, 16 * c, p.Nk, sl2, m, l, record + (c - c_lo) * 64, t, lane);
+    tile_max[tile++ * 32] = make_float2(m[0], m[1]);
+    c += 2;
+  }
+  if (c < c_hi) {
+    float s1[2][4];
+    chunk_scores<D, 1>(ks, 16 * c, qa, s1, g, t);
+    chunk_softmax<1>(s1, 16 * c, p.Nk, sl2, m, l, record + (c - c_lo) * 64, t, lane);
+    tile_max[tile * 32] = make_float2(m[0], m[1]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  if constexpr (KG > 1) {
+    // the row group's warps exchange their rows' (max, sum), and each merges
+    // all of them in the same order: every warp holds the row's exact max
+    // and sum (a warp without keys holds -inf and 0, and adds nothing)
+    float* const stats = smem + S::kBar / 4 + rg * KG * 32;  // [KG][16 rows][max, sum]
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        stats[(kg * 16 + g + 8 * r) * 2] = m[r];
+        stats[(kg * 16 + g + 8 * r) * 2 + 1] = l[r];
+      }
+    }
+    named_barrier(1 + rg, 32 * KG);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* const row = stats + (g + 8 * r) * 2;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < KG; ++w) mx = fmaxf(mx, row[w * 32]);
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < KG; ++w) sum += row[w * 32 + 1] * exp2_ftz(row[w * 32] - mx);
+      m[r] = mx;
+      l[r] = sum;
+    }
+  }
+  const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+
+  // pass 2: o += p v, p normalised and rounded to bf16, once V has landed
+  mbarrier_wait(v_landed, 0);
+  float o[NT][4];
+#pragma unroll
+  for (int dn = 0; dn < NT; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  }
+  // f = exp2(m_tile - max) * inv of each row, once a tile
+  auto tile_factor = [&](int i, float (&f)[2]) {
+    const float2 mt = tile_max[i * 32];
+    f[0] = exp2_ftz(mt.x - m[0]) * inv[0];
+    f[1] = exp2_ftz(mt.y - m[1]) * inv[1];
+  };
+  c = c_lo;
+  tile = 0;
+  float f[2];
+#pragma unroll 1
+  for (; c + 4 <= c_hi; c += 4, ++tile) {
+    tile_factor(tile, f);
+    chunk_pv_recorded<D, 4>(record + (c - c_lo) * 64, vs, 16 * c, f, o, lane);
+  }
+  if (c + 2 <= c_hi) {
+    tile_factor(tile++, f);
+    chunk_pv_recorded<D, 2>(record + (c - c_lo) * 64, vs, 16 * c, f, o, lane);
+    c += 2;
+  }
+  if (c < c_hi) {
+    tile_factor(tile, f);
+    chunk_pv_recorded<D, 1>(record + (c - c_lo) * 64, vs, 16 * c, f, o, lane);
+  }
+  if constexpr (KG > 1) {
+    // warps 1..KG-1 hand their partial fp32 accumulators to warp 0, which
+    // adds them in order (lane-major: conflict-free)
+    float* const accs = smem + (S::kBar + S::kStats) / 4 + rg * (KG - 1) * (D / 2) * 32 + lane;
+    if (kg > 0) {
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accs[((kg - 1) * (D / 2) + dn * 4 + e) * 32] = o[dn][e];
+      }
+    }
+    named_barrier(1 + rg, 32 * KG);
+    if (kg > 0) return;
+#pragma unroll
+    for (int w = 1; w < KG; ++w) {
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dn][e] += accs[((w - 1) * (D / 2) + dn * 4 + e) * 32];
+      }
+    }
+  }
+
+  uint16_t* const out = p.out + (long long)bh * p.Nq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row < p.Nq) {
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn) {
+        *reinterpret_cast<uint32_t*>(out + (long long)row * D + dn * 8 + 2 * t) =
+            pack_bf16(o[dn][2 * r], o[dn][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D, int RG, int KG>
+int launch_bf16_resident(const AttnBf16Params& p, cudaStream_t stream) {
+  const auto kernel = flash_attn_rope_bf16_resident_kernel<D, RG, KG>;
+  const int smem = ResidentSmem<D, RG, KG>::bytes(p.Nk);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Nq + 16 * RG - 1) / (16 * RG), p.B * p.H);
+  kernel<<<grid, 32 * RG * KG, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the variant and, resident, the layout the launch's size takes
+template <int D>
+int launch_bf16_variant(const AttnBf16Params& p, cudaStream_t stream) {
+  if (bf16_variant(p.Nk, D) == kStreamed) return launch_bf16_warps<D>(p, stream);
+  return split_keys(p.B, p.H, p.Nq) ? launch_bf16_resident<D, kSplit.rg, kSplit.kg>(p, stream)
+                                    : launch_bf16_resident<D, kWide.rg, kWide.kg>(p, stream);
+}
+
 }  // namespace
 
 // q [B, H, Nq, D], k/v [B, H, Nk, D] with unit stride on D, the given element
@@ -914,18 +1529,39 @@ extern "C" int siu3r_flash_attn_rope_bf16_fwd(
                          B, H, Nq, Nk,
                          q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn,
                          scale};
-  if (D == 64) return launch_bf16_warps<64>(p, stream);
-  if (D == 32) return launch_bf16_warps<32>(p, stream);
+  if (D == 64) return launch_bf16_variant<64>(p, stream);
+  if (D == 32) return launch_bf16_variant<32>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel 1b's launch for these sizes: blocks, threads a block, dynamic
-// shared memory bytes a block.
-extern "C" int siu3r_flash_attn_bf16_launch_config(int B, int H, int Nq, int D, int* blocks, int* threads, int* smem) {
+// Kernel 1b's variant for these sizes, from Nk and D alone: 1 the resident
+// kernel, 2 the streamed one; 0 for a head dim it does not take.
+extern "C" int siu3r_flash_attn_bf16_variant(int Nk, int D) {
+  if (D != 32 && D != 64) return 0;
+  return (int)bf16_variant(Nk, D);
+}
+
+// Kernel 1b's launch for these sizes (the variant's): blocks, threads a
+// block, dynamic shared memory bytes a block.
+extern "C" int siu3r_flash_attn_bf16_launch_config(int B, int H, int Nq, int Nk, int D, int* blocks, int* threads,
+                                                   int* smem) {
   if (D != 32 && D != 64) return (int)cudaErrorInvalidValue;
-  const int rg = split_keys(B, H, Nq) ? 2 : 4;
+  const Bf16Variant variant = bf16_variant(Nk, D);
+  int rg, kg;
+  if (variant == kStreamed) {
+    rg = split_keys(B, H, Nq) ? 2 : 4;
+    kg = 1;
+    *smem = D == 64 ? SmemBf16<64>::kBytes : SmemBf16<32>::kBytes;
+  } else if (split_keys(B, H, Nq)) {
+    rg = kSplit.rg;
+    kg = kSplit.kg;
+    *smem = D == 64 ? SplitSmem<64>::bytes(Nk) : SplitSmem<32>::bytes(Nk);
+  } else {
+    rg = kWide.rg;
+    kg = kWide.kg;
+    *smem = D == 64 ? WideSmem<64>::bytes(Nk) : WideSmem<32>::bytes(Nk);
+  }
   *blocks = B * H * ((Nq + 16 * rg - 1) / (16 * rg));
-  *threads = 32 * rg;
-  *smem = D == 64 ? SmemBf16<64>::kBytes : SmemBf16<32>::kBytes;
+  *threads = 32 * rg * kg;
   return 0;
 }

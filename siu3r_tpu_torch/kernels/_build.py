@@ -16,7 +16,9 @@ One ``bin`` count is three (``bin_prep_kernel``, ``bin_count_kernel``,
 ``bin_write_kernel``), after the wrapper's depth sort in torch. An ``msda``
 count is one launch of one of two kernels, also counted in
 ``variant_counts`` as ``msda.staged`` (the head's value slice in shared
-memory) or ``msda.global`` (taps read from global memory).
+memory) or ``msda.global`` (taps read from global memory); likewise a
+``flash_attn_rope_bf16`` count as ``flash_attn_rope_bf16.resident`` (the
+head's K and V in shared memory) or ``.streamed``.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ _SIGNATURES = {
     "siu3r_flash_attn_fwd": [_vp] * 9 + [_i] * 5 + [_ll] * 9 + [ctypes.c_float, _vp],
     "siu3r_flash_attn_launch_config": [_i] * 5 + [ctypes.POINTER(_i)] * 3,
     "siu3r_flash_attn_rope_bf16_fwd": [_vp] * 8 + [_i] * 5 + [_ll] * 9 + [ctypes.c_float, _vp],
-    "siu3r_flash_attn_bf16_launch_config": [_i] * 4 + [ctypes.POINTER(_i)] * 3,
+    "siu3r_flash_attn_bf16_launch_config": [_i] * 5 + [ctypes.POINTER(_i)] * 3,
+    "siu3r_flash_attn_bf16_variant": [_i] * 2,
     "siu3r_msda_fwd": [_vp] * 6 + [_i] * 7 + [ctypes.POINTER(_i), _vp],
     "siu3r_bin_scratch_ints": [_i] * 4,
     "siu3r_bin_gaussians": [_vp] * 6 + [_i] * 9 + [_vp],

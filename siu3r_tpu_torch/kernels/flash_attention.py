@@ -16,8 +16,11 @@ On bf16 q, k and v (the backbone under ``model.dtype: bfloat16``) a sibling
 kernel, kernel 1b, is ``_attn_rope_kernel`` as the JAX package runs it on
 bf16: the rotation in bf16 with bf16 tables, bf16 products accumulated in
 fp32, the softmax in fp32 and the normalised probabilities rounded to bf16
-before p v, a bf16 output (launches counted as ``flash_attn_rope_bf16``).
-It takes RoPE tables and no key mask (no bf16 call has one: the masked
+before p v, a bf16 output (launches counted as ``flash_attn_rope_bf16``,
+and in ``_build.variant_counts`` by the kernel that ran: ``.resident``, the
+head's K and V and pass 1's record in shared memory, as at every shape the
+model makes; ``.streamed`` for longer key sets; ``bf16_variant`` says which
+from Nk and D). It takes RoPE tables and no key mask (no bf16 call has one: the masked
 attention takes the plain path, and kernel 2's callers, Mask2Former and the
 language layers, compute in fp32), bf16 tables, and rows on 16-byte
 boundaries: batch, head and row strides that are multiples of 8 elements.
@@ -35,6 +38,7 @@ kernel to port here.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -108,16 +112,29 @@ def _check(q, k, v, qrope, krope, kv_mask) -> None:
         raise ValueError("kv_mask must be a contiguous bool [B, Nk] on q's device")
 
 
-def launch_config(b: int, h: int, nq: int, d: int, rope: bool,
+# kernel 1b's variants, as siu3r_flash_attn_bf16_variant numbers them
+BF16_VARIANTS = {1: "flash_attn_rope_bf16.resident", 2: "flash_attn_rope_bf16.streamed"}
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_variant(nk: int, d: int) -> str:
+    """The kernel 1b variant that takes Nk keys of head dim D: the resident
+    kernel with pass 1's record where K, V and the record fit a block's
+    shared memory (up to 320 keys at D = 64, 400 at D = 32), else the
+    streamed one. Needs the built library."""
+    return BF16_VARIANTS[_build.load_library().siu3r_flash_attn_bf16_variant(nk, d)]
+
+
+def launch_config(b: int, h: int, nq: int, nk: int, d: int, rope: bool,
                   dtype: torch.dtype = torch.float32) -> tuple[int, int, int]:
-    """The kernel's launch at these sizes (kernel 1b's for bf16): (blocks,
-    threads a block, dynamic shared memory bytes a block). Needs the built
-    library."""
+    """The kernel's launch at these sizes (kernel 1b's for bf16, in its
+    variant's layout): (blocks, threads a block, dynamic shared memory bytes
+    a block). Needs the built library."""
     lib = _build.load_library()
     out = [ctypes.c_int() for _ in range(3)]
     refs = (ctypes.byref(x) for x in out)
     if dtype == torch.bfloat16:
-        err = lib.siu3r_flash_attn_bf16_launch_config(b, h, nq, d, *refs)
+        err = lib.siu3r_flash_attn_bf16_launch_config(b, h, nq, nk, d, *refs)
     else:
         err = lib.siu3r_flash_attn_launch_config(b, h, nq, d, int(rope), *refs)
     _build.check_launch(err, "flash_attn launch_config")
@@ -144,6 +161,7 @@ def _flash_attn_forward(q, k, v, scale, qrope, krope, kv_mask) -> torch.Tensor:
         )
         _build.check_launch(err, "flash_attn_rope_bf16")
         _build.launch_counts["flash_attn_rope_bf16"] += 1
+        _build.variant_counts[bf16_variant(nk, d)] += 1
         return out
     rope_ptrs = (
         [t.data_ptr() for t in (*qrope, *krope)] if qrope is not None else [None] * 4
