@@ -60,6 +60,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      sweeping at least 4 chunks per live tile); the raster kernels held
      against their plain versions on a step's own inputs, timed side by
      side, with how the kept pairs spread over the tiles and sub-tiles;
+     bf16_train: the same in bf16 (``model.dtype: bfloat16``): the small
+     config's slice (each loss term within half the CPU's own bf16-vs-fp32
+     difference or rtol 1e-3, those past Mask2Former's masked attention
+     within 2e-2), then phase 8's pipeline switched with
+     ``set_compute_dtype`` (its optimizer goes on; kernel 1b in place of
+     kernel 1), 4 steps timed after 2 warm-up steps beside phase 8's;
   7. CLI: two synthetic images through ``python -m siu3r_tpu_torch.cli.inference``
      (its own process, under its own settings) to ``output.ply``, read back and
      checked against the reference schema and this process's forward; then
@@ -157,12 +163,17 @@ The data-parallel phases start this script once a rank (``--rank_worker``)
 under ``python -m torch.distributed.run --standalone``, and fail unless
 every rank exits 0 and writes its result. Every phase logs the SM clock
 (``nvidia-smi`` clocks.sm, clocks.max.sm) at its start and end, and its
-seconds.
+seconds. A kernel's time counts only from a profiler trace that holds
+exactly its launches a call times the calls (``time_ms``); where two traces
+in a row lose records (the profiler drops a fixed number of calls' records
+after the full-width model has run), it is taken by CUDA events instead,
+which nothing can shorten; a time below the kernel's bound fails the run.
 It then prints the kernels' JSON line (each kernel with the two-view path's
 launches and times and, under "multi_view" and "refer", the 8-view path's
 and the refer forward's; under "validate" the launches of one sweep batch,
 under "train_cli" those of one micro-step and the render kernels' times on
-its inputs; under "dp_train", "zero1_train" and "dp_validate" each rank's
+its inputs; under "bf16_train" those of one bf16 train step and kernel 6's
+time on its inputs; under "dp_train", "zero1_train" and "dp_validate" each rank's
 launches, of one step and of the whole sweep; under "nccl" one step's)
 and, last, the device line.
 ``--phases`` runs the named phases only (after 1 and 2) and prints neither.
@@ -172,6 +183,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -261,6 +273,18 @@ BF16_MEANS_REL = 1e-3
 BF16_SLICE_FRACTION = 1.0
 BF16_GAUSSIAN_KEYS = ("means", "covariances", "harmonics", "opacities", "scales", "rotations")
 BF16_LABELS = 0.99
+# the small config's bf16 train step on the GPU against the CPU: each loss
+# term within the larger of BF16_TRAIN_FRACTION of the CPU's own bf16-vs-fp32
+# difference of that term and SLICE_RTOL; a term that reads Mask2Former past
+# its first masked attention (whose masks threshold the previous layer's
+# logits, so a last-bit difference flips some of them) within
+# BF16_MASKED_RTOL: on the CPU alone, the same bf16 step with oneDNN's
+# convolutions off (nothing else changed) moves such terms by up to 9.2e-3
+# relative, 13.7 times their bf16-vs-fp32 difference, and the others by at
+# most 1.22 times it and 5.9e-4 relative (tests/test_torch_bf16_train.py
+# meets the same at the tiny config against JAX)
+BF16_TRAIN_FRACTION = 0.5
+BF16_MASKED_RTOL = 2e-2
 # a full-width bf16 forward against the fp32 forward on the same weights: the
 # JAX package's own bounds on its bf16 path (tests/test_model.py)
 ORACLE_MEANS_REL, ORACLE_LABELS = 0.05, 0.9
@@ -268,6 +292,22 @@ ORACLE_MEANS_REL, ORACLE_LABELS = 0.05, 0.9
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+TRACE_ATTEMPTS = 2
+TIMED_BY_EVENTS: list = []  # kernel times that no whole trace gave
+# each counted kernel wrapper's device entries (substrings of the profiler's
+# names) and their records a launch: binning runs three kernels after its
+# sort, each raster wrapper ranks the tiles before its main kernel
+DEVICE_RECORDS = {
+    "flash_attn": {"flash_attn_fwd_kernel": 1},
+    "flash_attn_rope": {"flash_attn_fwd_kernel": 1},
+    "flash_attn_rope_bf16": {"flash_attn_rope_bf16": 1},
+    "msda": {"msda_kernel": 1},
+    "bin": {"bin_prep_kernel": 1, "bin_count_kernel": 1, "bin_write_kernel": 1},
+    "raster": {"order_tiles_kernel": 1, "raster_kernel": 1},
+    "raster_bwd": {"order_tiles_kernel": 1, "raster_bwd_kernel": 1},
+}
 
 
 def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False,
@@ -284,20 +324,28 @@ def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False,
     ``events`` (a yardstick, whose device time alone is read) it is not
     taken, and None. Plain versions are not timed here but by ``event_ms``.
 
-    A short trace can come back empty, and one of many launches cut short
-    (CUPTI delivers its records late, or drops them): an empty trace is
-    taken again, at most five times. With ``whole`` (a kernel's own time,
-    a few launches a call) a trace counts only if every device entry ran a
-    multiple of ``iters`` times (each call launches the same kernels), or
-    if its entries' counts equal the previous trace's (launches that vary
-    from call to call); after five short ones, the last is taken with each
-    entry's mean time a launch if no entry lost a tenth of its records, and
-    else raises. Yardsticks (SDPA, the bank attention) are timed with
-    ``whole`` too, so that a cut-short trace cannot lower their figure."""
+    A trace can come back empty, or with records lost (CUPTI delivers them
+    late, or drops them), and a trace that lost records reads low. With
+    ``whole`` (a kernel's own time, and the yardsticks) a trace counts only
+    if every device entry ran a multiple of ``iters`` times and each counted
+    kernel's entries (``DEVICE_RECORDS``) hold exactly its launches a call
+    (``_build.launch_counts`` over one call) times ``iters`` records; a
+    trace that fails is logged and taken again, TRACE_ATTEMPTS times in all.
+    Then the time is taken by ``event_ms`` and noted in TIMED_BY_EVENTS,
+    and each part from the last trace where its entries are whole, else
+    None."""
     from torch.profiler import ProfilerActivity, profile
 
+    from siu3r_tpu_torch.kernels import _build
+
+    before = collections.Counter(_build.launch_counts)
     fn()
     torch.cuda.synchronize()
+    launched = collections.Counter(_build.launch_counts) - before
+    expected = collections.Counter()
+    for name, n in launched.items():
+        for entry, per_launch in DEVICE_RECORDS[name].items():
+            expected[entry] += n * per_launch * iters
     elapsed = None
     if events:
         start = torch.cuda.Event(enable_timing=True)
@@ -308,35 +356,41 @@ def time_ms(fn, iters: int, parts: dict | None = None, whole: bool = False,
         end.record()
         end.synchronize()
         elapsed = start.elapsed_time(end) / iters
-    previous = None
-    for _ in range(5):
+    for attempt in range(TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         device_us = sum(e.self_device_time_total for e in rows)
-        counts = sorted((e.key, e.count) for e in rows)
-        complete = all(e.count % iters == 0 for e in rows) or counts == previous
-        previous = counts
-        if device_us > 0 and (complete or not whole):
+        records = {entry: sum(e.count for e in rows if entry in e.key) for entry in expected}
+        short = [(e.key[:60], e.count) for e in rows if e.count % iters]
+        if device_us > 0 and (not whole or (not short and records == dict(expected))):
             part_ms = None if parts is None else {
                 name: sum(e.self_device_time_total for e in rows if any(x in e.key for x in subs)) / 1e3 / iters
                 for name, subs in parts.items()}
             return device_us / 1e3 / iters, elapsed, part_ms
-    # five traces in a row cut short: each entry's mean time a launch times
-    # its launches a call (its count over iters, rounded), where no entry lost
-    # more than a tenth of its records
-    per_call = {e.key: round(e.count / iters) for e in rows}
-    if device_us > 0 and all(per_call[e.key] >= 1 and e.count >= 0.9 * per_call[e.key] * iters for e in rows):
-        short = [(e.key[:40], e.count) for e in rows if e.count % iters]
-        log("time", f"five traces of {iters} calls came back short, the last by {short}: mean times a launch used")
-        mean_ms = lambda e: e.self_device_time_total / e.count * per_call[e.key] / 1e3
-        part_ms = None if parts is None else {
-            name: sum(mean_ms(e) for e in rows if any(x in e.key for x in subs)) for name, subs in parts.items()}
-        return sum(mean_ms(e) for e in rows), elapsed, part_ms
-    raise RuntimeError(f"the profiler recorded no whole trace of {iters} calls: "
-                       f"{[(e.key[:60], e.count) for e in rows if e.count % iters]} (of {len(rows)} entries)")
+        log("time", f"trace {attempt + 1} of {iters} calls not whole, taken again: kernel records {records} "
+                    f"against {dict(expected)}, entries not a multiple of {iters} {short}")
+    ms = event_ms(fn, iters)
+    TIMED_BY_EVENTS.append(ms)
+    # a part from the last trace only where its entries are whole
+    part_ms = None if parts is None else {
+        name: (sum(e.self_device_time_total for e in mine) / 1e3 / iters
+               if mine and all(e.count % iters == 0 for e in mine) else None)
+        for name, subs in parts.items()
+        for mine in [[e for e in rows if any(x in e.key for x in subs)]]}
+    log("time", f"no whole trace of {iters} calls in {TRACE_ATTEMPTS}: timed by CUDA events instead, {ms:.5f} "
+                f"ms a call (the card's clock over the calls queued behind a sleep: the gaps between kernels "
+                f"count, nothing can shorten it); parts from the last trace where whole {part_ms}")
+    return ms, elapsed, part_ms
+
+
+def at_or_above_bound(what: str, ms: float, bound_ms: float) -> None:
+    """A kernel's measured time below the least time the card could take for
+    its work is a measurement fault: raise."""
+    if not ms >= bound_ms:
+        raise AssertionError(f"{what}: {ms:.6f} ms measured, below its bound of {bound_ms:.6f} ms")
 
 
 def event_ms(fn, iters: int) -> float:
@@ -518,6 +572,7 @@ def check_attention(name, case, iters, gen, cross=False, inputs=None, scale=None
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, scale=scale), iters, whole=True,
                          events=False)[0]
     bnd = _attn_bound(case, dtype)
+    at_or_above_bound(f"attention {name} {case}", ms, bnd["bound_ms"])
     blocks, threads, smem = launch_config(*case[:5], case[5], dtype)
     bf16 = dtype == torch.bfloat16
     log("kernel", f"{name} {case[:5]} rope={case[5]} mask={case[6]}{' bf16 ' + variant[0] if bf16 else ''}: "
@@ -593,6 +648,7 @@ def check_msda(name, case, iters, gen, inputs=None):
     nbytes, flops = _msda_cost(case, loc)
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
     b_ms, b_by = larger(bytes_ms, ops_ms)
+    at_or_above_bound(f"msda {name}", ms, b_ms)
     log("kernel", f"msda {name} B={case[0]} Lq={case[1]} H={case[2]} D={case[3]} P={case[4]} "
                   f"levels={shapes}: {expected} kernel, max_abs_err {err:.3g} ms {ms:.5f} (elapsed "
                   f"{elapsed:.5f}) plain_ms {plain_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
@@ -849,21 +905,27 @@ def check_bin(name, proj, k, iters) -> dict:
         nbytes, ops = _bin_cost(proj, *got)
         # the wrapper's device time: the depth sort (torch), then the three
         # kernels of csrc/binning.cu, each on its own
+        # (a part is None where no whole trace came: the time is then CUDA
+        # events', and the split is not known)
         res["ms"], res["elapsed"], parts = time_ms(kern, iters, parts=BIN_PARTS, whole=True)
-        res["kernel_ms"] = sum(parts[p] for p in BIN_KERNELS)
-        res.update({f"{p}_ms": ms for p, ms in parts.items()})
-        if not all(parts[p] > 0 for p in BIN_KERNELS):
+        if any(parts[p] == 0 for p in BIN_KERNELS):
             raise RuntimeError(f"the profiler's trace misses a binning kernel: {parts}")
+        own = [parts[p] for p in BIN_KERNELS]
+        res["kernel_ms"] = None if None in own else sum(own)
+        res.update({f"{p}_ms": ms for p, ms in parts.items()})
         res["plain_ms"] = event_ms(plain, max(3, iters // 4))
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops, PEAK_INT32_OPS)
+        at_or_above_bound(f"bin {name}", res["ms"], res["bound_ms"])
     log("kernel", f"bin {name} views={proj.depth.shape[0]} G={proj.depth.shape[1]} K={k}: exact, "
                   f"mean count {res['mean_count']:.1f}, share at K {res['at_k']:.3f}"
                   + (f", ms {res['ms']:.5f} (elapsed {res['elapsed']:.5f}) plain_ms {res['plain_ms']:.5f} "
                      f"bound_ms {res['bound_ms']:.5f} ({res['bound_by']})" if iters else ""))
     if iters:
-        log("kernel", f"bin {name} split: sort_ms {res['sort_ms']:.5f}, own kernels {res['kernel_ms']:.5f} ("
-                      + ", ".join(f"{p} {res[p + '_ms']:.5f}" for p in BIN_KERNELS)
-                      + f"), other {res['ms'] - res['sort_ms'] - res['kernel_ms']:.5f}")
+        text = lambda ms: "not known" if ms is None else f"{ms:.5f}"
+        split = [res["sort_ms"], res["kernel_ms"]]
+        log("kernel", f"bin {name} split: sort_ms {text(res['sort_ms'])}, own kernels {text(res['kernel_ms'])} ("
+                      + ", ".join(f"{p} {text(res[p + '_ms'])}" for p in BIN_KERNELS)
+                      + f"), other {text(None if None in split else res['ms'] - sum(split))}")
         for entry, ms in _device_breakdown(kern, iters)[1]:
             log("kernel", f"  bin {name} device {ms:.5f} ms  {entry[:110]}")
     return res
@@ -1014,6 +1076,7 @@ def check_raster(name, table, counts, params, colors, iters) -> dict:
         res["ms"], res["elapsed"], _ = time_ms(kern, iters, whole=True)
         res["plain_ms"] = event_ms(plain, max(3, iters // 4))
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+        at_or_above_bound(f"raster {name}", res["ms"], res["bound_ms"])
     log("kernel", f"raster {name} views={table.shape[0]} K={table.shape[-1]} C={colors.shape[-1]}: max_abs_err "
                   f"{err:.3g} (depth {depth_err:.3g}), chunks swept per live tile {res['mean_swept']:.2f}, "
                   f"share of live tiles swept to their count {res['full_sweeps']:.3f}, tiles whose sweep "
@@ -1218,6 +1281,7 @@ def check_raster_bwd(name, table, counts, params, colors, iters, gen) -> dict:
         res["ms"], res["elapsed"], _ = time_ms(kern, iters, whole=True)
         res["plain_ms"] = event_ms(plain, max(2, iters // 10))
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops)
+        at_or_above_bound(f"raster_bwd {name}", res["ms"], res["bound_ms"])
     log("kernel", f"raster_bwd {name} views={n} K={k} C={c}: max_abs_err, atol and worst excess per part "
                   + ", ".join(f"{part} {e[0]:.3g}/{e[1]:.3g}/{e[2]:.3g}" for part, e in errs.items())
                   + f"; saturating tiles {res['saturating_tiles']} of {n * t}"
@@ -1854,7 +1918,7 @@ def _forward(phase: str, cfg) -> dict:
 # phase of its path, which runs next: the bf16 path computes on the same
 # weights, switched with ``set_compute_dtype`` (no second random init)
 _KEPT: dict = {}
-BF16_TWINS = ("forward", "eval", "multi_forward")  # the fp32 phases with a bf16 phase after them
+BF16_TWINS = ("forward", "eval", "train", "multi_forward")  # the fp32 phases with a bf16 phase after them
 
 
 def _fp32_model(fp32_phase: str, build):
@@ -2136,36 +2200,54 @@ def _render_grads(gaussians, batch, hw) -> dict:
     return {k: g for k, g in zip(inputs, grads)}, float(r.alpha.detach().mean())
 
 
-def phase_train_small() -> None:
-    """(a) The small config's train step on the GPU (kernels) against the CPU
-    (plain versions) with the same weights and sample points: every loss
-    term, then the render loss's gradient on the step's own Gaussians."""
+def _train_small(phase: str, dtype: str = "float32") -> None:
+    """(a) The small config's train step computing in ``dtype`` on the GPU
+    (kernels) against the CPU (plain versions) with the same weights and
+    sample points: every loss term, then the render loss's gradient on the
+    step's own Gaussians. In bf16 a term is held within the larger of
+    BF16_TRAIN_FRACTION of the CPU's own bf16-vs-fp32 difference on those
+    weights and SLICE_RTOL, or, downstream of Mask2Former's masked
+    attention (``_follows_masks``), within BF16_MASKED_RTOL."""
     from siu3r_tpu_torch.config import PipelineCfg, RootCfg
+    from siu3r_tpu_torch.models.model import set_compute_dtype
     from siu3r_tpu_torch.pipeline import Pipeline
 
-    root = RootCfg(pipeline=PipelineCfg(model=_small_cfg()))
+    root = RootCfg(pipeline=PipelineCfg(model=_small_cfg(dtype=dtype)))
     gpu = Pipeline(root, device="cuda", seed=7).init_train(steps_per_epoch=10)
     cpu = Pipeline(root, device="cpu", seed=0).init_train(steps_per_epoch=10)
     cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
     rng = np.random.RandomState(0)
     images = torch.from_numpy(rng.rand(1, 2, 64, 64, 3).astype(np.float32))
     intr = torch.tensor([[1.24, 0, 0.5], [0, 1.24, 0.5], [0, 0, 1]]).expand(1, 2, 3, 3).contiguous()
     with torch.no_grad():
+        set_compute_dtype(cpu.model, "float32")
         means = cpu.model.train()(images, intr).gaussians.means
+        set_compute_dtype(cpu.model, dtype)
+        cpu.model.load_state_dict(state)
     batch = _train_batch(images, intr, _target_views(means, TRAIN_TARGETS), 6, 4,
                          root.pipeline.model.mask2former.num_labels, seed=1)
     inj = _injected_coords(root.pipeline.model, 1, 6, 2, "cpu", seed=2)
     _, lg = gpu.loss_fn({k: x.cuda() for k, x in batch.items()}, None,
                         injected_coords=[{k: x.cuda() for k, x in d.items()} for d in inj])
     _, lc = cpu.loss_fn(batch, None, injected_coords=inj)
+    if dtype == "float32":
+        tol = {key: (SLICE_RTOL * abs(float(ref.detach())), SLICE_ATOL) for key, ref in lc.items()}
+    else:  # the CPU's fp32 terms on the same weights: the bf16-vs-fp32 difference
+        cpu.model.load_state_dict(state)
+        set_compute_dtype(cpu.model, "float32")
+        _, l32 = cpu.loss_fn(batch, None, injected_coords=inj)
+        lc32 = {key: float(x.detach()) for key, x in l32.items()}
+        tol = {key: (max(BF16_TRAIN_FRACTION * abs(float(ref.detach()) - lc32[key]),
+                         (BF16_MASKED_RTOL if _follows_masks(key) else SLICE_RTOL) * abs(float(ref.detach()))), 0.0)
+               for key, ref in lc.items()}
     worst = 0.0
     for key, ref in lc.items():
         a, b = float(lg[key].detach()), float(ref.detach())
-        excess = abs(a - b) - SLICE_RTOL * abs(b)
+        excess = abs(a - b) - tol[key][0]
         worst = max(worst, excess)
-        if not math.isfinite(a) or excess > SLICE_ATOL:
-            raise AssertionError(f"train slice: loss {key} {a} on cuda vs {b} on cpu beyond rtol {SLICE_RTOL} "
-                                 f"atol {SLICE_ATOL}")
+        if not math.isfinite(a) or excess > tol[key][1]:
+            raise AssertionError(f"{phase} slice: loss {key} {a} on cuda vs {b} on cpu beyond {tol[key]}")
     # the render loss's gradient on the GPU step's own Gaussians, copied to the CPU
     with torch.no_grad():
         g = gpu.model(*(batch[k].cuda() for k in ("context_views_images", "context_views_intrinsics"))).gaussians
@@ -2173,18 +2255,30 @@ def phase_train_small() -> None:
     gc, _ = _render_grads(g.replace(**{f: getattr(g, f).cpu() for f in ("means", "covariances", "harmonics",
                                                                          "opacities")}), batch, (64, 64))
     if coverage < MIN_COVERAGE:
-        raise AssertionError(f"train slice: the target views see almost nothing (mean alpha {coverage})")
+        raise AssertionError(f"{phase} slice: the target views see almost nothing (mean alpha {coverage})")
     errs = {}
     for key, a in gg.items():
         b = gc[key].double()
         errs[key] = ((a.cpu().double() - b).norm() / b.norm().clamp(min=1e-30)).item()
         if not bool(torch.isfinite(a).all()) or errs[key] > GRAD_REL_L2 or b.abs().max().item() == 0.0:
-            raise AssertionError(f"train slice: render gradient {key} relative L2 error {errs[key]} > "
+            raise AssertionError(f"{phase} slice: render gradient {key} relative L2 error {errs[key]} > "
                                  f"{GRAD_REL_L2} (cuda kernels vs cpu plain), or zero")
-    log("train", f"small config loss terms on cuda (kernels) vs cpu (plain) within rtol {SLICE_RTOL} atol "
-                 f"{SLICE_ATOL} (worst excess {worst:.3g}): total {float(lg['total'].detach()):.5f}; render-loss gradient "
-                 f"on the step's Gaussians (mean alpha {coverage:.3f}) relative L2 errors "
-                 + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    rule = (f"rtol {SLICE_RTOL} atol {SLICE_ATOL}" if dtype == "float32" else
+            f"max({BF16_TRAIN_FRACTION} x the cpu's bf16-vs-fp32 difference, rtol {SLICE_RTOL}; "
+            f"{BF16_MASKED_RTOL} past the masked attention)")
+    log(phase, f"small config in {dtype}: loss terms on cuda (kernels) vs cpu (plain) within {rule} (worst "
+               f"excess {worst:.3g}): total {float(lg['total'].detach()):.5f}"
+               + ("" if dtype == "float32" else ", each term's |cuda - cpu| / its cpu bf16-vs-fp32 difference "
+                  + ", ".join(f"{k} {abs(float(lg[k].detach()) - float(lc[k].detach())) / max(abs(float(lc[k].detach()) - lc32[k]), 1e-30):.3g}"
+                              for k in lc))
+               + f"; render-loss gradient on the step's Gaussians (mean alpha {coverage:.3f}) relative L2 errors "
+               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+
+def _follows_masks(key: str) -> bool:
+    """A loss term that reads Mask2Former past its first masked attention:
+    the criterion's terms of every layer but the first, and their sums."""
+    return key in ("seg", "total") or (key.startswith("loss_") and not key.endswith("_0"))
 
 
 def _count_syncs(run) -> tuple[int, dict]:
@@ -2230,19 +2324,21 @@ def _occupancy(calls) -> tuple[float, float]:
     return alpha.mean().item(), swept[live].float().mean().item() if bool(live.any()) else 0.0
 
 
-def _train(phase: str, cfg, n_target: int, steps: int) -> dict:
+def _train(phase: str, cfg, n_target: int, steps: int, pipe=None) -> dict:
     """(b) ``Pipeline.train_step`` at full width over ``cfg``'s views and
-    ``n_target`` target views: launches per step, finite losses, the frozen
-    encoder untouched and the trained parts moved; then ``steps`` steps
-    timed, each step's target cameras framing the Gaussians that step
+    ``n_target`` target views (on ``pipe``, after its ``init_train``, else
+    on a new pipeline of ``cfg``): launches per step, finite losses, the
+    frozen encoder untouched and the trained parts moved; then ``steps``
+    steps timed, each step's target cameras framing the Gaussians that step
     renders, with kernel 6 held against its plain version on a step's own
     inputs."""
     from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.pipeline import Pipeline
     from siu3r_tpu_torch.train.optimizer import group_of
 
-    pipe = Pipeline(cfg, device="cuda", seed=0).init_train(steps_per_epoch=1000)
-    mcfg = cfg.pipeline.model
+    if pipe is None:
+        pipe = Pipeline(cfg, device="cuda", seed=0).init_train(steps_per_epoch=1000)
+    mcfg = pipe.model.cfg
     views = mcfg.num_views
     images, intr = _view_inputs(views)
 
@@ -2314,19 +2410,24 @@ def _train(phase: str, cfg, n_target: int, steps: int) -> dict:
                              f"below {MIN_COVERAGE} or {MIN_SWEPT}")
     frame()
     device_ms, top = _device_breakdown(run, 1)
+    kinds = {"gemm": 0.0, "conv": 0.0}
+    for name, ms in top:
+        if _kernel_kind(name):
+            kinds[_kernel_kind(name)] += ms
     med = statistics.median(times)
     res = dict(launches=launches, median_s=med, min_s=min(times), max_s=max(times), per_s=1.0 / med,
                peak_gib=peak / 2**30, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3),
-               top_device_ms=top, host_syncs=n_syncs, sync_sources=sync_sources, lap_syncs=lap_syncs,
-               losses=values, moved=moved, step=pipe.optimizer.count, mean_alpha=list(alphas),
-               swept_per_live_tile=list(swepts))
-    log(phase, f"Pipeline.train_step, ViT-L {views}-view 256x256 B=1 fp32, {n_target} target views, "
+               top_device_ms=top[:20], gemm_ms=kinds["gemm"], conv_ms=kinds["conv"], host_syncs=n_syncs,
+               sync_sources=sync_sources, lap_syncs=lap_syncs, losses=values, moved=moved,
+               step=pipe.optimizer.count, mean_alpha=list(alphas), swept_per_live_tile=list(swepts))
+    log(phase, f"Pipeline.train_step, ViT-L {views}-view 256x256 B=1 {mcfg.dtype} compute, {n_target} target views, "
                f"{N_OBJECTS} objects ({N_VALID} valid): launches {launches} (expected), losses finite "
                f"({', '.join(f'{k} {values[k]:.4f}' for k in ('seg', 'depth_smoothness', 'render_mse', 'lpips', 'total'))}), "
                f"frozen encoder unchanged, moved {({k: round(v, 8) for k, v in moved.items()})}")
     log(phase, f"median of {len(times)} warm steps {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
                f"{max(times) * 1e3:.2f}) = {1.0 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; device "
-               f"busy {device_ms:.2f} ms per step, idle share {res['idle_share']:.3f}; host syncs per step "
+               f"busy {device_ms:.2f} ms per step, idle share {res['idle_share']:.3f}; GEMMs {kinds['gemm']:.3f} "
+               f"ms, convolutions {kinds['conv']:.3f} ms; host syncs per step "
                f"{n_syncs} (the LAP's convergence tests {lap_syncs}; sources {sync_sources}); per timed step "
                f"mean alpha {[round(a, 3) for a in alphas]}, chunks swept per live tile "
                f"{[round(x, 2) for x in swepts]}")
@@ -2351,14 +2452,36 @@ def _train(phase: str, cfg, n_target: int, steps: int) -> dict:
                f"{_spread_text(res['raster_bwd']['spread'])}; the step's render kernels: raster "
                f"{res['raster']['ms']:.5f} ms (bound {res['raster']['bound_ms']:.5f}), raster_bwd "
                f"{res['raster_bwd']['ms']:.5f} ms (bound {res['raster_bwd']['bound_ms']:.5f})")
-    del pipe, calls, batch
+    del calls, batch
+    if phase in BF16_TWINS:  # the bf16 phase of the same path takes the pipeline
+        _KEPT[phase] = (pipe, res)
+    del pipe
     torch.cuda.empty_cache()
     return res
 
 
 def phase_train() -> dict:
-    phase_train_small()
+    _train_small("train")
     return _train("train", two_view_cfg(), TRAIN_TARGETS, 8)
+
+
+def phase_bf16_train() -> dict:
+    """The train step in bf16: the small config's slice, then the full-width
+    step on phase train's pipeline (its weights after its steps, switched
+    with ``set_compute_dtype``; its optimizer goes on: fresh moments would
+    move every weight by about a learning rate at once, and the first timed
+    step's render dropped to a mean alpha of 0.099), 4 steps timed after 2
+    warm-up steps, beside phase train's figures."""
+    from siu3r_tpu_torch.models.model import set_compute_dtype
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    _train_small("bf16_train", "bfloat16")
+    pipe, ref_res = _fp32_model(
+        "train", lambda: Pipeline(two_view_cfg(), device="cuda", seed=0).init_train(steps_per_epoch=1000))
+    set_compute_dtype(pipe.model, "bfloat16")
+    res = _train("bf16_train", two_view_cfg(), TRAIN_TARGETS, 4, pipe=pipe)
+    log("bf16_train", _beside(res, ref_res))
+    return res
 
 
 def phase_multi_train() -> dict:
@@ -4256,7 +4379,7 @@ SOURCES = {
 PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "raster_bwd": phase_raster_bwd,
           "autograd": phase_autograd, "slice": phase_slice_check, "bf16_slice": phase_bf16_slice,
           "forward": phase_forward, "bf16_forward": phase_bf16_forward, "eval": phase_eval,
-          "bf16_eval": phase_bf16_eval, "train": phase_train, "cli": phase_cli, "multi_slice": phase_multi_slice,
+          "bf16_eval": phase_bf16_eval, "train": phase_train, "bf16_train": phase_bf16_train, "cli": phase_cli, "multi_slice": phase_multi_slice,
           "multi_forward": phase_multi_forward, "bf16_multi_forward": phase_bf16_multi_forward,
           "multi_eval": phase_multi_eval, "multi_train": phase_multi_train,
           "multi_cli": phase_multi_cli, "refer_slice": phase_refer_slice, "refer_forward": phase_refer_forward,
@@ -4320,7 +4443,8 @@ def main(argv=None) -> None:
         for name in PHASES:
             if name in phases:
                 run_phase(name)
-        log("done", f"phases {phases} passed; no JSON lines (they need every phase)")
+        log("done", f"phases {phases} passed; {len(TIMED_BY_EVENTS)} kernel times by CUDA events for want of "
+                    f"a whole trace; no JSON lines (they need every phase)")
         return
     per_kernel = run_phase("kernels")
     render_err = run_phase("render_kernels")
@@ -4333,6 +4457,7 @@ def main(argv=None) -> None:
     ev = run_phase("eval")
     bev = run_phase("bf16_eval")
     tr = run_phase("train")
+    btr = run_phase("bf16_train")
     run_phase("cli")
     run_phase("multi_slice")
     mfwd = run_phase("multi_forward")
@@ -4370,7 +4495,7 @@ def main(argv=None) -> None:
     worst = {**{k: max(two_view[k]["err"], rfwd["kernels"][k]["err"], bfwd["kernels"][k]["err"],
                         bmfwd["kernels"][k]["err"]) for k in per_kernel}, "bin": render_err["bin"],
              "raster": max(render_err["raster"], two_view["raster"]["err"]),
-             "raster_bwd": max(bwd_err, tr["raster_bwd"]["err"])}
+             "raster_bwd": max(bwd_err, tr["raster_bwd"]["err"], btr["raster_bwd"]["err"])}
     worst.update({k: max(worst[k], r["err"]) for k, r in tcli["kernels"].items()})
     # the refer path's: the model kernels per refer forward on its own inputs
     # (the language layers' attention shape also on its own); no render
@@ -4417,6 +4542,11 @@ def main(argv=None) -> None:
                      **{k: bfwd["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                         if name in bfwd["kernels"]}},
             "bf16_eval": {"launches": bev["launches"].get(name, 0)},
+            # one bf16 train step (phase bf16_train): its launches, and
+            # kernel 6's time on the step's own inputs
+            "bf16_train": {"launches": btr["launches"].get(name, 0),
+                           **({k: btr["raster_bwd"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                              if name == "raster_bwd" else {})},
             "bf16_multi_view": {"launches": bmfwd["launches"].get(name, 0),
                                 **{k: bmfwd["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                                    if name in bmfwd["kernels"]}},
@@ -4424,13 +4554,15 @@ def main(argv=None) -> None:
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
-            {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr, "multi_forward": mfwd,
+            {"card": smi, "kernels": kernels, "forward": fwd, "eval": ev, "train": tr, "bf16_train": btr,
+             "multi_forward": mfwd,
              "bf16_forward": bfwd, "bf16_eval": bev, "bf16_multi_forward": bmfwd,
              "multi_eval": mev, "multi_train": mtr, "refer_forward": rfwd, "refer_eval": rev, "refer_train": rtr,
              "refer_cli": rcli, "val_slice": vsl, "validate": val, "evaluate": evl, "train_cli": tcli,
              "dp_validate": dval, "dp_train": dtr, "zero1_train": ztr, "dp_train_cli": dcli, "nccl": nccl,
              "sm_clock": SM_CLOCKS, "phase_seconds": PHASE_SECONDS}, indent=1, default=str))
-    log("done", f"every phase passed; seconds by phase {PHASE_SECONDS}, "
+    log("done", f"every phase passed; {len(TIMED_BY_EVENTS)} kernel times by CUDA events for want of a whole "
+                f"trace; seconds by phase {PHASE_SECONDS}, "
                 f"{sum(PHASE_SECONDS.values()):.1f} s in all, from the start {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,9 @@ generator that mixes r into the step's seed (the JAX step's ``fold_in`` of the
 axis index). ``metrics.jsonl``, ``train_viz/`` (from the data-parallel eval
 step, gathered on rank 0) and the checkpoints are written by rank 0 only.
 ``trainer.devices`` is the JAX package's mesh size; here the world size
-decides.
+decides. ``pipeline.model.dtype=bfloat16`` trains with the backbone and the
+adapter computing in bf16 (fp32 parameters and optimizer state, so the
+saved state restores into a run of either dtype).
 """
 
 from __future__ import annotations
@@ -117,7 +119,7 @@ def _train(args) -> dict:
     from siu3r_tpu_torch.checkpoint_io import restore_train_state, save_train_state
     from siu3r_tpu_torch.config import bind_scannet_classes, load_config
     from siu3r_tpu_torch.data import Loader
-    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline, check_trainable, gather_eval_arrays
+    from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline, gather_eval_arrays
     from siu3r_tpu_torch.train.optimizer import make_lr_schedule
     from siu3r_tpu_torch.utils.logging import MetricsHistory, RankedLogger
     from siu3r_tpu_torch.visualizer import Visualizer, eval_step_arrays
@@ -126,7 +128,6 @@ def _train(args) -> dict:
     device = parallel.init_distributed(args.dist_backend, args.device)
     rank, world = parallel.rank(), parallel.world_size()
     cfg = bind_scannet_classes(load_config(args.config, args.overrides))
-    check_trainable(cfg.pipeline.model)
     out_dir = Path(cfg.output_path or f"outputs/{cfg.mode}/{cfg.experiment}")
     if rank == 0:
         out_dir.mkdir(parents=True, exist_ok=True)

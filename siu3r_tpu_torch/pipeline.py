@@ -26,9 +26,12 @@ JAX mesh: no SyncBatchNorm) before the one optimizer update; with
 A batch with ``text_token`` (ScanRefer) trains the refer path instead
 (``refer_loss_fn``): the understanding-only forward, one final-layer
 Hungarian match and the word-match cross-entropy.
-Training computes in fp32 only: under ``model.dtype: bfloat16`` (the eval
-and refer-eval steps' compute dtype) ``init_train`` and ``train_step`` raise
-``NotImplementedError``.
+Under ``model.dtype: bfloat16`` every step trains as the JAX package's does
+(``jax.value_and_grad`` through the same bf16 modules): the backbone and the
+adapter compute in bf16, so their activations and the cotangents that run
+back through them are bf16; parameters, gradients, the AdamW moments, the
+global-norm clip and the averaged gradients of a process group stay fp32
+(each cast of an fp32 weight to bf16 passes its gradient back as fp32).
 
 ``Pipeline.eval_step`` (the reference's step_w_query_class_logit_lift): the
 forward in eval mode with the query-class lift, then novel-view RGB, depth
@@ -45,7 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from siu3r_tpu_torch import parallel
-from siu3r_tpu_torch.config import ModelCfg, RootCfg
+from siu3r_tpu_torch.config import RootCfg
 from siu3r_tpu_torch.models.layers import resize_nhwc
 from siu3r_tpu_torch.models.model import ModelOutput, SIU3RModel
 from siu3r_tpu_torch.renderer import RenderOutput, render_color_and_qc, render_gaussians
@@ -58,14 +61,6 @@ from siu3r_tpu_torch.train.losses import (
 )
 from siu3r_tpu_torch.train.matcher import hungarian_match_batch
 from siu3r_tpu_torch.train.optimizer import AdamW3, MultiSteps, Zero1AdamW3
-
-def check_trainable(model_cfg: ModelCfg) -> None:
-    """Raise unless a model of ``model_cfg`` can be trained: the bf16 compute
-    path runs the forward and the eval steps, not training yet."""
-    if model_cfg.dtype != "float32":
-        raise NotImplementedError(f"training under model.dtype: {model_cfg.dtype} is not ported; "
-                                  "train with model.dtype: float32")
-
 
 # the batch keys ``Pipeline.eval_step`` reads
 EVAL_KEYS = ("context_views_images", "context_views_intrinsics", "target_views_extrinsics",
@@ -91,7 +86,6 @@ class Pipeline:
         wrapped in ``MultiSteps`` when ``trainer.accumulate_grad_batches`` >
         1) and LPIPS (``lpips_weights`` if that file exists, else the
         fixed-seed VGG)."""
-        check_trainable(self.model.cfg)
         self.lpips_params = (lpips_mod.init_lpips_params(lpips_weights, device=self.device)
                              if lpips_enabled else None)
         zero1 = self.cfg.trainer.zero1 and parallel.world_size() > 1
@@ -215,7 +209,6 @@ class Pipeline:
         included), the loss terms and the BatchNorm running statistics are
         averaged over the ranks before the update, so every rank returns the
         same terms and keeps the same parameters."""
-        check_trainable(self.model.cfg)
         if self.optimizer is None:
             raise RuntimeError("call init_train first")
         for p in self.model.parameters():

@@ -70,7 +70,6 @@ from siu3r_tpu.models.layers import Block as JaxBlock
 from siu3r_tpu.models.layers import DecoderBlock as JaxDecoderBlock
 from siu3r_tpu.pipeline import Pipeline as JaxPipeline
 from siu3r_tpu.pipeline import TrainState
-from siu3r_tpu_torch.cli import train as train_cli
 from siu3r_tpu_torch.config import PipelineCfg, RootCfg
 from siu3r_tpu_torch.kernels import flash_attention as FA
 from siu3r_tpu_torch.kernels.msda import msda
@@ -422,22 +421,7 @@ def test_set_compute_dtype_switches_a_built_model(tiny):
     assert m32.cfg.dtype == "float32"
 
 
-# ---------------------------------------------------------------- refusals
-
-
-def test_train_step_refuses_bf16(tiny):
-    jcfg = tiny[0]
-    pipe = Pipeline(RootCfg(pipeline=PipelineCfg(model=port_cfg(dataclasses.replace(jcfg, dtype="bfloat16")))),
-                    device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        pipe.train_step({}, None)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        pipe.init_train()
-
-
-def test_train_cli_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        train_cli.main(["--config", "configs/scannet.yaml", "--device", "cpu", "pipeline.model.dtype=bfloat16"])
+# ---------------------------------------------------------------- ops
 
 
 def test_rope2d_in_bf16_rounds_as_the_jax_package():

@@ -11,6 +11,9 @@ rule and against one process.
     sample points on both sides; its tolerances (loss terms rtol 1e-3 /
     atol 1e-5, each gradient tensor a relative L2 error of 2e-3 where its
     norm exceeds 1e-6 of the global norm, statistics rtol 1e-4 / atol 1e-6).
+  * The same step with the model computing in bf16 against the mean of the
+    port's one-process bf16 step on each shard, at the same tolerances
+    (tests/test_torch_bf16_train.py holds that step against JAX's).
   * ZeRO-1 against the replicated step from the same state: every parameter
     within 1e-6 (tests/test_train.py's), each rank's moments of each group
     half the group plus at most one element of padding.
@@ -52,6 +55,7 @@ from siu3r_tpu_torch import parallel
 from siu3r_tpu_torch.checkpoint_io import restore_train_state
 from siu3r_tpu_torch.cli import validate
 from siu3r_tpu_torch.data import Loader
+from siu3r_tpu_torch.models.model import set_compute_dtype
 from siu3r_tpu_torch.pipeline import Pipeline
 from siu3r_tpu_torch.train.optimizer import MultiSteps
 from siu3r_tpu_torch.weights import lpips_params_from_jax
@@ -110,6 +114,30 @@ def _jax_shard_means(jcfg, jlpips, variables, batch, injected):
                 grads=jax.tree.map(mean, *[s[2] for s in shards]), alphas=[s[3] for s in shards])
 
 
+def _bf16_shard_means(cfg, state, lpips, batch, injected):
+    """The port's one-process bf16 step on each shard (one item each): the
+    mean over the shards of the loss terms, the gradients and the new
+    BatchNorm statistics, by the port's parameter and buffer names."""
+    pipe = Pipeline(cfg, device="cpu", seed=0)
+    set_compute_dtype(pipe.model, "bfloat16")
+    pipe.lpips_params = lpips
+    shards = []
+    for i in range(2):
+        pipe.model.load_state_dict(state)
+        b = {k: torch.from_numpy(v[i:i + 1]) for k, v in batch.items()}
+        inj = [{k: torch.from_numpy(v[i:i + 1]) for k, v in d.items()} for d in injected]
+        _, losses = pipe.loss_fn(b, None, injected_coords=inj)
+        losses["total"].backward()
+        grads = {n: p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+                 for n, p in pipe.model.named_parameters()}
+        pipe.model.zero_grad(set_to_none=True)
+        stats = {k: v.clone() for k, v in pipe.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+        shards.append(({k: float(v.detach()) for k, v in losses.items()}, grads, stats))
+    mean = lambda dicts: {k: sum(d[k] for d in dicts) / 2 for k in dicts[0]}
+    return dict(losses=mean([s[0] for s in shards]), grads=mean([s[1] for s in shards]),
+                stats=mean([s[2] for s in shards]))
+
+
 @pytest.fixture(scope="module")
 def group(fake_root, tmp_path_factory):  # noqa: F811
     """Start the two-rank group, then, while it runs, the JAX package's
@@ -143,6 +171,8 @@ def group(fake_root, tmp_path_factory):  # noqa: F811
     try:
         variables = convert_siu3r_state_dict({k: v.numpy() for k, v in state.items()}, jcfg.pipeline.model)
         ref = _jax_shard_means(jcfg, jlpips, variables, batch, injected)
+        bf16_ref = _bf16_shard_means(cfg, state, lpips_params_from_jax(jax.tree.map(np.asarray, jlpips)), batch,
+                                     injected)
         one_sweep = validate.main(["--config", os.devnull, "--device", "cpu", "--ckpt", str(tmp / "sweep_weights.pt"),
                                    "--output_path", str(tmp / "val_one"), *TINY_OVERRIDES,
                                    f"datamodule.dataset_cfg.root={root}"])
@@ -155,7 +185,8 @@ def group(fake_root, tmp_path_factory):  # noqa: F811
     assert rc == 0, (tmp / "group.log").read_text()[-6000:]
     res = torch.load(out / "results.pt", weights_only=False)
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
-    yield dict(tmp=tmp, out=out, jcfg=jcfg, cfg=cfg, state=state, ref=ref, res=res, ranks=ranks, one_sweep=one_sweep)
+    yield dict(tmp=tmp, out=out, jcfg=jcfg, cfg=cfg, state=state, ref=ref, bf16_ref=bf16_ref, res=res, ranks=ranks,
+               one_sweep=one_sweep)
     for run in ("train", "resumed"):
         shutil.rmtree(out / run / "checkpoints", ignore_errors=True)
 
@@ -198,6 +229,28 @@ def test_dp_step_batchnorm_statistics_are_the_mean_of_the_jax_shards(group):
     # the mean of the shards', not rank 0's: the statistics moved from the state
     moved = max(float(np.abs(stats[k] - state[k]).max()) for k in stats)
     assert moved > 1e-4
+
+
+def test_dp_bf16_step_is_the_mean_of_the_one_process_bf16_shards(group):
+    ref, res = group["bf16_ref"], group["res"]
+    assert res["bf16_losses"].keys() == ref["losses"].keys()
+    for key, value in ref["losses"].items():
+        np.testing.assert_allclose(res["bf16_losses"][key], value, rtol=1e-3, atol=1e-5, err_msg=key)
+    assert res["bf16_losses"]["total"] != res["dp_losses"]["total"]  # the step computed in bf16
+    grads = res["bf16_grads"]
+    assert all(g.dtype == torch.float32 for g in grads.values())
+    global_norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in ref["grads"].values())))
+    checked = 0
+    for name, g in ref["grads"].items():
+        norm = float(g.double().norm())
+        if norm <= 1e-6 * global_norm:
+            continue
+        err = float((grads[name].double() - g.double()).norm()) / norm
+        assert err <= 2e-3, (name, err)
+        checked += 1
+    assert checked > 0.9 * len(ref["grads"])
+    for name, value in ref["stats"].items():
+        np.testing.assert_allclose(res["bf16_stats"][name].numpy(), value.numpy(), rtol=1e-4, atol=1e-6, err_msg=name)
 
 
 def test_the_ranks_hold_the_same_parameters(group):

@@ -221,3 +221,29 @@ def test_train_cli_resumes_mid_accumulation_as_the_uninterrupted_run(cli_runs):
         for k, v in a["optimizer"]["inner"][key].items():
             assert torch.equal(b["optimizer"]["inner"][key][k], v), (key, k)
     assert a["optimizer"]["acc"] is b["optimizer"]["acc"] is None  # saved at a step boundary: the mean is zero
+
+
+def test_train_cli_trains_in_bf16_and_resumes(fake_root, tmp_path):  # noqa: F811
+    """``cli/train ... pipeline.model.dtype=bfloat16`` at k = 2: one step,
+    then a resume of its mid-accumulation checkpoint for the second: finite
+    records, and the state file holds fp32 parameters, moments and running
+    mean (the fp32 run's layout)."""
+    try:
+        full = _run(fake_root, tmp_path / "full", "trainer.max_steps=1", "pipeline.model.dtype=bfloat16")
+        resumed = _run(fake_root, tmp_path / "resumed", "trainer.max_steps=2", "pipeline.model.dtype=bfloat16",
+                       resume=tmp_path / "full" / "checkpoints" / "epoch000-1")
+        steps = _records(tmp_path / "full") + _records(tmp_path / "resumed")
+        assert [r["step"] for r in steps] == [0, 1]
+        assert all(np.isfinite(r["train/total"]) for r in steps)
+        assert [os.path.basename(c) for c in full["checkpoints"]] == ["epoch000-1"]
+        assert [os.path.basename(c) for c in resumed["checkpoints"]] == ["epoch001-2"]
+        for path in (full["checkpoints"][0], resumed["checkpoints"][0]):
+            state = torch.load(path, map_location="cpu", mmap=True, weights_only=False)
+            assert state["model"] and all(v.dtype in (torch.float32, torch.int64) for v in state["model"].values())
+            inner = state["optimizer"]["inner"]
+            assert all(v.dtype == torch.float32 for key in ("mu", "nu") for v in inner[key].values())
+        acc = torch.load(full["checkpoints"][0], map_location="cpu", mmap=True, weights_only=False)["optimizer"]["acc"]
+        assert acc and all(v.dtype == torch.float32 for v in acc.values())
+    finally:
+        for run in ("full", "resumed"):
+            shutil.rmtree(tmp_path / run / "checkpoints", ignore_errors=True)

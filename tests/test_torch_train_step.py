@@ -85,9 +85,11 @@ def _injected(cfg, batch, seed=0):
     } for _ in range(m2f.decoder_layers)]
 
 
-def _jax_loss_fn(jcfg, lpips_params, batch, injected):
+def _jax_loss_fn(jcfg, lpips_params, batch, injected, with_assignments=False):
     """The JAX package's Pipeline.loss_fn, composed from its functions with
-    injected sample points and the label loss on the matched queries only."""
+    injected sample points and the label loss on the matched queries only.
+    ``with_assignments`` adds each layer's Hungarian assignment [L, B, O] to
+    the aux outputs."""
     model = JaxModel(jcfg.pipeline.model)
     m2f = jcfg.pipeline.model.mask2former
     pcfg = jcfg.pipeline
@@ -108,12 +110,14 @@ def _jax_loss_fn(jcfg, lpips_params, batch, injected):
             importance=m2f.importance_sample_ratio, injected_coords=inj,
         )
         losses = dict(seg)
+        assignments = []
         n_layers = len(out.seg.aux_class_logits)
         for li, (cls_l, msk_l) in enumerate(zip(out.seg.aux_class_logits, out.seg.aux_mask_logits)):
             assignment = jax.vmap(
                 lambda c, m, gm, gc, gv, mc: jax_hungarian_match(
                     c, m, gm, gc, gv, None, cost_mask=m2f.mask_weight, cost_dice=m2f.dice_weight, coords=mc)
             )(cls_l, msk_l, jb["gt_masks"], jb["gt_classes"], jb["gt_valid"], inj[li]["match"])
+            assignments.append(assignment)
             dropped = jnp.where(assignment >= 0, assignment, cls_l.shape[1])
             key = "loss_cross_entropy" + ("" if li == n_layers - 1 else f"_{li}")
             ce = jax_label_loss(cls_l, jb["gt_classes"], dropped, m2f.num_labels, m2f.no_object_weight)
@@ -130,12 +134,16 @@ def _jax_loss_fn(jcfg, lpips_params, batch, injected):
         loss = loss + losses["render_mse"]
         b, n = target.shape[:2]
         half = (h // 2, w // 2)
-        losses["lpips"] = jax_lpips.lpips(
-            lpips_params, bilinear_resize_torch(render.color.reshape(b * n, h, w, 3), half, align_corners=True),
-            bilinear_resize_torch(target.reshape(b * n, h, w, 3), half, align_corners=True))
-        loss = loss + 0.5 * losses["lpips"]
+        if lpips_params is None:  # as the port's loss without LPIPS
+            losses["lpips"] = jnp.zeros(())
+        else:
+            losses["lpips"] = jax_lpips.lpips(
+                lpips_params, bilinear_resize_torch(render.color.reshape(b * n, h, w, 3), half, align_corners=True),
+                bilinear_resize_torch(target.reshape(b * n, h, w, 3), half, align_corners=True))
+            loss = loss + 0.5 * losses["lpips"]
         losses["total"] = loss
-        return loss, (mutated["batch_stats"], losses, render.alpha)
+        aux = (mutated["batch_stats"], losses, render.alpha)
+        return loss, aux + (jnp.stack(assignments),) if with_assignments else aux
 
     return loss_fn
 

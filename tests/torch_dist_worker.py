@@ -8,6 +8,8 @@ LPIPS parameters, a global batch of 2 and each item's injected sample
 points. Each rank, over gloo:
   1. the data-parallel train step on its slice (``Pipeline.train_step`` with
      injected points), the averaged gradients recorded before the update;
+     then the same step from the same state with the model computing in
+     bf16 (``set_compute_dtype``);
   2. the ZeRO-1 step (``trainer.zero1``) from the same state on the same slice;
   3. the data-parallel eval step on its slice, gathered on rank 0, which
      also runs the one-process eval step on the whole batch;
@@ -28,6 +30,7 @@ import torch
 from siu3r_tpu_torch import config as port_config
 from siu3r_tpu_torch import parallel
 from siu3r_tpu_torch.cli import train, validate
+from siu3r_tpu_torch.models.model import set_compute_dtype
 from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline, gather_eval_arrays
 from siu3r_tpu_torch.train.optimizer import Zero1AdamW3
 from siu3r_tpu_torch.visualizer import eval_step_arrays
@@ -67,6 +70,18 @@ def main(inputs: str, out: str, root: str) -> None:
     dp_params = {n: p.detach().clone() for n, p in params.items()}
     res["dp_grads"], res["dp_stats"] = grads, _bn_stats(pipe.model)
     mine["dp_params_sum"] = float(sum(p.double().sum() for p in dp_params.values()))
+
+    # 1b. the same step computing in bf16, from the same state (the
+    #     optimizer's moments have moved: only gradients, terms and
+    #     statistics are recorded)
+    pipe.model.load_state_dict(initial)
+    set_compute_dtype(pipe.model, "bfloat16")
+    grads = {}
+    pipe.optimizer.step = recording_step
+    res["bf16_losses"] = {k: float(v) for k, v in pipe.train_step(batch, None, injected_coords=injected).items()}
+    del pipe.optimizer.step
+    res["bf16_grads"], res["bf16_stats"] = grads, _bn_stats(pipe.model)
+    set_compute_dtype(pipe.model, "float32")
 
     # 2. ZeRO-1 from the same state, on the same slice
     pipe.model.load_state_dict(initial)
