@@ -133,9 +133,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      to 4 encoder and 2 + 2 decoder blocks) and B = 3 with
      gradient accumulation k = 2 for 4 steps from a training state of biased
      weights W (finite records, train_viz PNGs, one checkpoint whose heads
-     moved from W by more than their decay), then ``--resume`` of it for one
-     more epoch; in this process from W at B = 3, k = 2: no parameter moves
-     after micro-step 1, every trained part (not the frozen encoder) by more
+     moved from W by more than their decay; a resumed CLI run is phase
+     26's, in two ranks and in one process); in this process from W at B =
+     3, k = 2: no parameter moves after micro-step 1, every trained part (not the frozen encoder) by more
      than its decay after micro-step 2, then micro-steps timed, each
      covered and swept, with their host syncs and peak memory, the binning,
      raster and raster_bwd kernels held against their plain versions on a
@@ -158,7 +158,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      checkpoint mid-accumulation, its resume under two ranks against the
      uninterrupted run, and the same checkpoint resumed in one process;
  27. nccl: phase 24's steps on one rank over NCCL (and on two cards over
-     NCCL where the machine has them, printed).
+     NCCL where the machine has them, printed);
+ 28. off_path: the modules no model builds. The encoder-only backbone
+     (``CroCoEncoderOnly``) at full ViT-L width, 2 views at 256x256, fp32
+     and then bf16 on the same weights: launch counts (kernel 1, or kernel
+     1b in its resident variant, 24 a forward at 256 keys; no other kernel),
+     no host sync, finite outputs, 12 warm forwards timed, the kernel held
+     against its plain version on the forward's own inputs, the bf16 output
+     within the JAX package's 5% of the fp32 one; ``MultiResDPTGSHead``
+     (83 channels) on blocks 6, 12, 18 and 24 and both linear heads on the
+     output, at full width; the small config's encoder and the three heads
+     on the GPU against the CPU (SLICE_RTOL / SLICE_ATOL); every function of
+     ``camera.py`` on CUDA tensors against the CPU (rtol 1e-4, atol 1e-5),
+     with no host sync, a parallel ray pair inf; kernel 4 against
+     ``bin_gaussians_sort`` (tables up to each count, counts exact) at the
+     eval shapes (6 views, G = 131,072, K = 4096) and at the 8-view eval's
+     (10 views, G = 524,288), the sort path timed beside the kernel.
 The data-parallel phases start this script once a rank (``--rank_worker``)
 under ``python -m torch.distributed.run --standalone``, and fail unless
 every rank exits 0 and writes its result. Every phase logs the SM clock
@@ -174,7 +189,10 @@ and the refer forward's; under "validate" the launches of one sweep batch,
 under "train_cli" those of one micro-step and the render kernels' times on
 its inputs; under "bf16_train" those of one bf16 train step and kernel 6's
 time on its inputs; under "dp_train", "zero1_train" and "dp_validate" each rank's
-launches, of one step and of the whole sweep; under "nccl" one step's)
+launches, of one step and of the whole sweep; under "nccl" one step's;
+under "off_path" those of one encoder-only forward in fp32 and in bf16,
+kernels 1 and 1b timed on its inputs, and kernel 4's times with the sort
+path's beside them)
 and, last, the device line.
 ``--phases`` runs the named phases only (after 1 and 2) and prints neither.
 Imports nothing of JAX or of the JAX package.
@@ -198,12 +216,24 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# This script starts some twenty Python processes (the CLIs, torchrun and its
+# ranks), each of which imports torch. Where the machine's Python is told not
+# to write bytecode (PYTHONDONTWRITEBYTECODE), every one of them compiles
+# torch's sources again; so this process and every one it starts keep their
+# bytecode in the checkout, under build/pycache (before numpy and torch are
+# imported).
+PYCACHE = Path(__file__).resolve().parent / "build" / "pycache"
+sys.pycache_prefix = str(PYCACHE)
+sys.dont_write_bytecode = False
+os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
-import siu3r_tpu_torch  # noqa: F401  (outside a checkout of the repo, fail before printing anything)
-from siu3r_tpu_torch.render.tiles import SLOTS_X, SLOTS_Y
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+import siu3r_tpu_torch  # noqa: F401,E402  (outside a checkout of the repo, fail before printing anything)
+from siu3r_tpu_torch.render.tiles import SLOTS_X, SLOTS_Y  # noqa: E402
 
 IMAGE = (256, 256)
 SLOTS = (SLOTS_Y, SLOTS_X)  # the rasterizer's slot grid; 256x256 has 16 x 2 tiles
@@ -1638,7 +1668,7 @@ def check_variants(expected: dict) -> None:
     kernel 1b launch the resident one (``expected``: the run's launches)."""
     from siu3r_tpu_torch.kernels import _build
 
-    want = {"msda.staged": expected["msda"]}
+    want = {"msda.staged": expected["msda"]} if expected.get("msda") else {}
     if expected.get("flash_attn_rope_bf16"):
         want["flash_attn_rope_bf16.resident"] = expected["flash_attn_rope_bf16"]
     variants = dict(_build.variant_counts)
@@ -1666,11 +1696,12 @@ def _device_breakdown(run, iters: int) -> tuple[float, list]:
 def _kernel_kind(name: str) -> str | None:
     """A device entry's kind by its name: a cuDNN convolution (implicit-GEMM
     fprop/dgrad/wgrad, Winograd, FFT, or named conv), else a matrix product
-    (cuBLAS and CUTLASS GEMM kernels); None for anything else."""
+    (cuBLAS and CUTLASS GEMM kernels, and cuBLASLt's ``nvjet`` kernels, which
+    run the bf16 products); None for anything else."""
     n = name.lower()
     if any(x in n for x in ("conv", "fprop", "dgrad", "wgrad", "winograd", "fft")):
         return "conv"
-    if any(x in n for x in ("gemm", "xmma", "cutlass", "gemv")):
+    if any(x in n for x in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
         return "gemm"
     return None
 
@@ -3054,7 +3085,7 @@ def phase_refer_cli() -> dict:
 VAL_SCENES = 4  # the validate CLI's --limit, at batch 1
 TRAIN_SCENES, SCENE_FRAMES = 6, 16  # B = 3: two steps an epoch
 SCENE_SIZE = 256
-TRAIN_CLI_STEPS, TRAIN_CLI_RESUMED = 4, 2
+TRAIN_CLI_STEPS = 4
 CLI_ATOL = 1e-6
 # each limit ten times the largest difference measured on an H100, rounded
 # up to 1, 2 or 5 of its decade (PERF.md §6 lists the readings). The small
@@ -3586,9 +3617,9 @@ def phase_train_cli() -> dict:
     metrics.jsonl, rgb, rgb_gt and depth PNGs under train_viz/, one
     checkpoint, whose frozen encoder equals W's and whose trained parts, the
     Gaussian and depth heads included, moved from W by more than their decay
-    (``_check_moves``: gradients reached every head through the render);
-    then ``--resume`` of it for one more epoch, from epoch 2 at global step
-    4, with finite losses. In this process from W (the same cut), B = 3,
+    (``_check_moves``: gradients reached every head through the render).
+    (A resumed run of the CLI, in one process and in two ranks, is phase
+    dp_train_cli's.) In this process from W (the same cut), B = 3,
     k = 2: every parameter bitwise unchanged after micro-step 1; after
     micro-step 2 the frozen encoder unchanged and every trained part moved
     by more than its decay; one micro-step's launches; then micro-steps
@@ -3617,7 +3648,7 @@ def phase_train_cli() -> dict:
     start = tmp / "start.pt"
     save_train_state(start, pipe, -1, 0)
 
-    out, resumed = tmp / "train_cli", tmp / "train_resumed"
+    out = tmp / "train_cli"
     first_s, stdout = _train_cli(root, out, TRAIN_CLI_STEPS, resume=start)
     start.unlink()
     records = _train_records(out)
@@ -3634,22 +3665,13 @@ def phase_train_cli() -> dict:
                             lambda n: saved[n].to("cuda", non_blocking=True), [0, 1])
     del saved
     _check_moves("train_cli (the CLI's checkpoint against W)", cli_moves)
-    resumed_s, stdout = _train_cli(root, resumed, TRAIN_CLI_STEPS + TRAIN_CLI_RESUMED, resume=ckpts[0])
-    rrec = _train_records(resumed)
-    if ("epoch 2, step 4" not in stdout
-            or [r["step"] for r in rrec] != list(range(TRAIN_CLI_STEPS, TRAIN_CLI_STEPS + TRAIN_CLI_RESUMED))
-            or {r["epoch"] for r in rrec} != {2} or not all(math.isfinite(r["train/total"]) for r in rrec)):
-        raise AssertionError(f"train_cli: the resumed run's records {rrec}:\n{stdout[-2000:]}")
-    for d in (out / "checkpoints", resumed / "checkpoints"):
-        shutil.rmtree(d)
+    shutil.rmtree(out / "checkpoints")
     log("train_cli", f"siu3r_tpu_torch.cli.train, configs/scannet.yaml (ViT-L 2-view 256x256 fp32 at depth "
                      f"{CUT_DEPTH}, B=3, 2 + 4 "
                      f"views), k=2, max_steps {TRAIN_CLI_STEPS}, from W at epoch -1: {first_s:.1f} s in its own "
                      f"process, totals {[round(r['train/total'], 4) for r in records]}, train_viz "
                      f"{sorted(viz_dirs)}, checkpoint {ckpts[0].name} ({ckpt_bytes / 2**30:.3f} GiB), its moves from "
-                     f"W (decay out, in learning rates) {({k: round(v, 3) for k, v in cli_moves.items()})}; "
-                     f"--resume: epoch 2 at step 4, {resumed_s:.1f} s, totals "
-                     f"{[round(r['train/total'], 4) for r in rrec]}")
+                     f"W (decay out, in learning rates) {({k: round(v, 3) for k, v in cli_moves.items()})}")
 
     # this process, from W: the accumulation at full width, then timing
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items() if isinstance(v, np.ndarray)}
@@ -3723,8 +3745,7 @@ def phase_train_cli() -> dict:
     restore_s = time.perf_counter() - t0
     state.unlink()
     med = statistics.median(times)
-    res = dict(first_run_s=first_s, resumed_s=resumed_s, totals=[r["train/total"] for r in records],
-               resumed_totals=[r["train/total"] for r in rrec], cli_checkpoint_gib=ckpt_bytes / 2**30,
+    res = dict(first_run_s=first_s, totals=[r["train/total"] for r in records], cli_checkpoint_gib=ckpt_bytes / 2**30,
                cli_moves=cli_moves, moves=moves, launches=launches, kernels=kernels, micro_step_median_s=med,
                micro_step_s=times, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=top,
                micro_steps_per_s=1.0 / med, peak_gib=peak, host_syncs=n_syncs,
@@ -4363,6 +4384,278 @@ def phase_dp_train_cli() -> dict:
 WORKERS = {"dp_train": worker_dp_train, "zero1_train": worker_zero1_train}
 
 
+# ---------------------------------------------------------------- phase 28: off the paths
+
+
+# the camera functions on the card against the CPU: the JAX package's own
+# tolerance for its fp32 modules (tests/test_torch_offpath.py)
+CAMERA_RTOL, CAMERA_ATOL = 1e-4, 1e-5
+
+
+def _hooks(depth: int) -> list:
+    """The encoder blocks whose outputs the multi-resolution head takes:
+    blocks depth/4, depth/2, 3 depth/4 and depth (0-based indices)."""
+    return [depth * k // 4 - 1 for k in (1, 2, 3, 4)]
+
+
+def _seeded(build, device: str, seed: int):
+    """The module ``build()`` makes, materialised on ``device`` with the
+    model's seeded init (``SIU3RModel``'s idiom), in eval mode."""
+    from siu3r_tpu_torch.models.layers import init_weights
+
+    with torch.device("meta"):
+        module = build()
+    module.to_empty(device=device)
+    return init_weights(module, torch.Generator(device=device).manual_seed(seed)).eval()
+
+
+def _off_path_modules(cfg, device: str, seed: int, raw: int) -> tuple:
+    """The encoder-only backbone of ``cfg`` and, on its width, the
+    multi-resolution head and both linear heads, seeded, on ``device``."""
+    from siu3r_tpu_torch.models.backbone import CroCoEncoderOnly
+    from siu3r_tpu_torch.models.heads import LinearGS, LinearPts3d, MultiResDPTGSHead
+
+    d = cfg.enc_embed_dim
+    return (CroCoEncoderOnly(cfg, device=device, seed=seed).eval(),
+            _seeded(lambda: MultiResDPTGSHead(raw, (d,) * 4), device, seed + 1),
+            _seeded(lambda: LinearPts3d(d), device, seed + 2),
+            _seeded(lambda: LinearGS(d, d_out=raw), device, seed + 3))
+
+
+def _off_path_outputs(modules, images: torch.Tensor) -> dict:
+    """Every output of the encoder-only forward and of the three heads on it
+    (the multi-resolution head on blocks ``_hooks``, the linear heads on the
+    normed last output), by name."""
+    enc, multi, pts, gs = modules
+    out = enc(images)
+    hw = tuple(images.shape[2:4])
+    res = {"feat1": out.feat1, "feat2": out.feat2,
+           **{f"all_feat{v}.{i}": t for v in (1, 2) for i, t in enumerate(getattr(out, f"all_feat{v}"))}}
+    scales = multi([out.all_feat1[i] for i in _hooks(len(out.all_feat1))], images[:, 0], hw)
+    res.update({f"multi_res.ds{ds}": t for ds, t in zip((4, 8, 16, 32), scales)})
+    res["linear_pts3d"] = pts([out.feat1], hw)
+    res["linear_gs"] = gs([out.feat1], hw)
+    return res
+
+
+def _off_path_slice(phase: str, raw: int) -> float:
+    """The small config's encoder (4 x 512, 8 heads: D = 64, as phase 4's)
+    and the three heads on the GPU (kernel 1) against the same weights on
+    the CPU (plain versions), at 64x64: every output within SLICE_RTOL /
+    SLICE_ATOL. Returns the worst excess."""
+    from siu3r_tpu_torch.config import CrocoCfg
+
+    cfg = CrocoCfg(enc_depth=4, enc_embed_dim=512, enc_num_heads=8)
+    gpu = _off_path_modules(cfg, "cuda", 7, raw)
+    cpu = _off_path_modules(cfg, "cpu", 0, raw)
+    for g, c in zip(gpu, cpu):
+        c.load_state_dict({k: v.cpu() for k, v in g.state_dict().items()})
+    images = torch.from_numpy(np.random.RandomState(3).rand(1, 2, 64, 64, 3).astype(np.float32))
+    with torch.inference_mode():
+        og = _off_path_outputs(gpu, images.cuda())
+        oc = _off_path_outputs(cpu, images)
+    worst = 0.0
+    for key, b in oc.items():
+        a = og[key].cpu().double()
+        excess = ((a - b.double()).abs() - SLICE_RTOL * b.double().abs()).max().item()
+        worst = max(worst, excess)
+        if tuple(a.shape) != tuple(b.shape) or not torch.isfinite(a).all() or excess > SLICE_ATOL:
+            raise AssertionError(f"{phase}: small config {key} {tuple(a.shape)} differs from the cpu's by {excess} "
+                                 f"beyond rtol {SLICE_RTOL}")
+    log(phase, f"small config (encoder 4 x 512, 8 heads, 64x64, 2 views; the multi-resolution head and both linear "
+               f"heads on it) on cuda (kernels) vs cpu (plain): {len(oc)} outputs within rtol {SLICE_RTOL} atol "
+               f"{SLICE_ATOL} (worst excess {worst:.3g})")
+    return worst
+
+
+def _encoder_only_forward(phase: str, enc, images, dtype: torch.dtype) -> tuple:
+    """One encoder-only forward in ``dtype`` on ``enc``'s weights: launch
+    counts (kernel 1, or kernel 1b in its resident variant, once a block; no
+    other kernel), no host sync, finite outputs of the expected shapes; 12
+    warm forwards timed; kernel 1 or 1b held against its plain version on the
+    forward's own inputs. Returns (output, result)."""
+    from siu3r_tpu_torch.models.layers import set_layers_dtype
+
+    depth, width = enc.cfg.enc_depth, enc.cfg.enc_embed_dim
+    set_layers_dtype(enc, dtype)
+    run = lambda: enc(images)
+    expected = {"flash_attn_rope_bf16" if dtype == torch.bfloat16 else "flash_attn_rope": depth}
+    with torch.inference_mode():
+        out = _counted_run(phase, run, expected)
+        grid = (images.shape[2] // 16) * (images.shape[3] // 16)
+        feats = [out.feat1, out.feat2, *out.all_feat1, *out.all_feat2]
+        if len(out.all_feat1) != depth or out.dec1 or out.dec2 or any(
+                tuple(t.shape) != (images.shape[0], grid, width) or not torch.isfinite(t).all() for t in feats):
+            raise AssertionError(f"{phase}: encoder-only outputs {[tuple(t.shape) for t in feats[:3]]} ..., "
+                                 f"expected [{images.shape[0]}, {grid}, {width}], finite, and no decoder outputs")
+        res = dict(launches=expected, **_timed_runs(run, 12))
+        res["kernels"] = _check_model_kernels(f"{phase} {str(dtype).removeprefix('torch.')}", run, 20)
+    log(phase, f"encoder only, ViT-L {depth} x {width}, 2 views 256x256 B=1, {str(dtype).removeprefix('torch.')}: "
+               f"launches {expected} (expected), no host sync, outputs finite; {_timing_text(res, 'forwards')}")
+    for name, ms in res["top_device_ms"][:5]:
+        log(phase, f"  device {ms:8.3f} ms  {name[:100]}")
+    return out, res
+
+
+def _camera_on_card(phase: str) -> int:
+    """Every function of ``siu3r_tpu_torch.camera`` on CUDA tensors against
+    the same call on the CPU, within CAMERA_RTOL / CAMERA_ATOL, with no host
+    sync; ``intersect_rays`` with a parallel pair (inf, no NaN) and an
+    opposite pair; ``sample_training_rays`` against the CPU's full-grid
+    world rays at the indices its CUDA generator draws. Returns the number
+    of outputs compared."""
+    from siu3r_tpu_torch import camera as C
+
+    rng = np.random.RandomState(5)
+    f32 = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    q = torch.linalg.qr(f32(2, 3, 3, 3)).Q
+    ext = torch.eye(4).repeat(2, 3, 1, 1)
+    ext[..., :3, :3] = q * torch.linalg.det(q)[..., None, None]  # det +1
+    ext[..., :3, 3] = f32(2, 3, 3)
+    intr = torch.eye(3).repeat(2, 3, 1, 1)
+    intr[..., 0, 0] = 1.2 + 0.1 * f32(2, 3)
+    intr[..., 1, 1] = 1.1 + 0.1 * f32(2, 3)
+    intr[..., :2, 2] = 0.5 + 0.05 * f32(2, 3, 2)
+    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
+    ox, oy, dx, dy = f32(64, 3), f32(64, 3), unit(f32(64, 3)), unit(f32(64, 3))
+    dy[0] = dx[0]  # parallel: inf
+    dy[1] = -dx[1]  # opposite: the point of the middle line nearest the origin
+    xy = torch.from_numpy(rng.rand(2, 3, 50, 2).astype(np.float32))
+    # camera-space points at least 0.5 in front (near the camera plane the
+    # projection divides rounding noise by a small depth), and the same
+    # points in the world
+    pts = f32(2, 3, 50, 3)
+    pts[..., 2] = pts[..., 2].abs() + 0.5
+    world = C.transform_cam2world(C.homogenize_points(pts), ext[..., None, :, :])[..., :3]
+    near = torch.from_numpy(rng.uniform(0.1, 1.0, 4).astype(np.float32))
+    calls = {
+        "homogenize_points": (C.homogenize_points, (pts,)),
+        "homogenize_vectors": (C.homogenize_vectors, (pts,)),
+        "transform_rigid": (C.transform_rigid, (C.homogenize_points(pts), ext[..., None, :, :])),
+        "transform_cam2world": (C.transform_cam2world, (C.homogenize_points(pts), ext[..., None, :, :])),
+        "transform_world2cam": (C.transform_world2cam, (C.homogenize_points(pts), ext[..., None, :, :])),
+        "project_camera_space": (C.project_camera_space, (pts, intr[..., None, :, :])),
+        "project": (C.project, (world, ext[..., None, :, :], intr[..., None, :, :])),
+        "unproject": (C.unproject, (xy, pts[..., 2], intr[..., None, :, :])),
+        "get_local_rays": (C.get_local_rays, (xy, intr[..., None, :, :])),
+        "get_world_rays": (C.get_world_rays, (xy, ext[..., None, :, :], intr[..., None, :, :])),
+        "intersect_rays": (C.intersect_rays, (ox, dx, oy, dy)),
+        "get_fov": (C.get_fov, (intr,)),
+        "get_projection_matrix": (C.get_projection_matrix, (near, near + 50.0, near + 0.5, near + 0.3)),
+        "relative_pose": (C.relative_pose, (ext,)),
+    }
+    n = 0
+    for name, (fn, args) in calls.items():
+        want = fn(*args)
+        dev_args = tuple(a.cuda() for a in args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        got = fn(*dev_args)
+        torch.cuda.set_sync_debug_mode("default")
+        for g, w in zip(*((x,) if isinstance(x, torch.Tensor) else x for x in (got, want))):
+            n += 1
+            g = g.cpu()
+            if g.dtype == torch.bool:
+                ok = torch.equal(g, w)
+            else:
+                ok = torch.isfinite(g).all() and torch.allclose(g, w, rtol=CAMERA_RTOL, atol=CAMERA_ATOL)
+            if not ok:
+                raise AssertionError(f"{phase}: camera {name} on cuda differs from the cpu beyond rtol "
+                                     f"{CAMERA_RTOL} atol {CAMERA_ATOL}")
+        if name == "intersect_rays" and not (bool((got[0] == 1e10).all()) and bool(torch.isfinite(got).all())
+                                             and not bool((got[1:] == 1e10).any())):
+            raise AssertionError(f"{phase}: intersect_rays: the parallel pair is not inf, or another is")
+    image = torch.from_numpy(rng.rand(2, 3, 4, 5, 3).astype(np.float32))
+    dev_args = (image.cuda(), intr.cuda(), ext.cuda())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    grid = C.sample_image_grid((4, 5), device="cuda")
+    rays = C.sample_training_rays(*dev_args, 32, torch.Generator(device="cuda").manual_seed(9))
+    torch.cuda.set_sync_debug_mode("default")
+    xy_grid, ij = C.sample_image_grid((4, 5))
+    # (the card divides by a scalar as a product with its reciprocal: within an ulp)
+    if not (torch.equal(grid[1].cpu(), ij) and torch.allclose(grid[0].cpu(), xy_grid, rtol=CAMERA_RTOL,
+                                                               atol=CAMERA_ATOL)):
+        raise AssertionError(f"{phase}: sample_image_grid on cuda differs from the cpu")
+    # the indices the function drew: the same draw from a generator of the same seed
+    idx = torch.randint(0, 3 * 4 * 5, (2, 32), device="cuda", generator=torch.Generator(device="cuda").manual_seed(9))
+    idx = idx.cpu()[..., None]
+    wo, wd = C.get_world_rays(xy_grid[..., None, None, :], ext, intr)
+    at = lambda t: t.reshape(2, 60, -1).gather(1, idx.expand(-1, -1, t.shape[-1]))
+    for got, want in zip(rays, (at(wo.permute(2, 3, 0, 1, 4)), at(wd.permute(2, 3, 0, 1, 4)), at(image))):
+        n += 1
+        if not torch.allclose(got.cpu(), want, rtol=CAMERA_RTOL, atol=CAMERA_ATOL):
+            raise AssertionError(f"{phase}: sample_training_rays on cuda differs from the cpu's rays at its indices")
+    log(phase, f"camera: {len(calls) + 2} functions, {n} outputs on cuda equal to the cpu's within rtol {CAMERA_RTOL} "
+               f"atol {CAMERA_ATOL}, no host sync; intersect_rays: the parallel pair inf, the opposite pair finite")
+    return n
+
+
+def _bin_against_sort(phase: str, name: str, gen, g: int, views: int) -> dict:
+    """Kernel 4 against ``bin_gaussians_sort`` on a synthetic scene of g
+    Gaussians seen by ``views`` cameras (K = 4096): tables equal up to each
+    tile's count, counts equal; then kernel 4 against its plain version,
+    timed (``check_bin``), and the sort path's device time beside it."""
+    from siu3r_tpu_torch.kernels.binning import bin_gaussians
+    from siu3r_tpu_torch.render.rasterizer import bin_gaussians_sort
+
+    k = 4096
+    proj, _ = _synthetic_scene(gen, g, views)
+    sort = lambda: bin_gaussians_sort(proj, IMAGE, k, *SLOTS)
+    if not _same_table(bin_gaussians(proj, IMAGE, k, *SLOTS), sort()):
+        raise AssertionError(f"{phase}: {name}: the binning kernel's tables or counts differ from the sort path's")
+    res = check_bin(f"{phase} {name}", proj, k, 20)
+    res["sort_ms"] = time_ms(sort, 10, whole=True, events=False)[0]
+    log(phase, f"bin {name} ({views} views, G = {g}, K = {k}): kernel 4 equal to the sort path (tables up to each "
+               f"count, counts); kernel {res['ms']:.5f} ms (bound {res['bound_ms']:.5f}, plain {res['plain_ms']:.5f}), "
+               f"sort path {res['sort_ms']:.5f} ms")
+    return res
+
+
+def phase_off_path() -> dict:
+    """The modules no model builds: the encoder-only backbone at full ViT-L
+    width (fp32, then bf16 on the same weights), the multi-resolution and
+    linear heads at full width on its outputs, the small config's encoder
+    and heads against the CPU, the camera functions against the CPU, and
+    kernel 4 against the sort path at the eval and 8-view eval shapes."""
+    from siu3r_tpu_torch.config import CrocoCfg
+    from siu3r_tpu_torch.models.layers import set_layers_dtype
+
+    phase = "off_path"
+    raw = two_view_cfg().pipeline.model.gaussian_head.raw_dim
+    res = {"slice_excess": _off_path_slice(phase, raw)}
+    modules = _off_path_modules(CrocoCfg(), "cuda", 0, raw)
+    enc = modules[0]
+    images, _ = _view_inputs(2)
+    out32, res["fp32"] = _encoder_only_forward(phase, enc, images, torch.float32)
+    out16, res["bf16"] = _encoder_only_forward(phase, enc, images, torch.bfloat16)
+    res["bf16_feat_rel"] = ((out16.feat1 - out32.feat1).abs().mean() / out32.feat1.abs().mean()).item()
+    if not res["bf16_feat_rel"] < ORACLE_MEANS_REL:
+        raise AssertionError(f"{phase}: the bf16 encoder's output off the fp32 one by a mean relative error of "
+                             f"{res['bf16_feat_rel']:.4g} (limit {ORACLE_MEANS_REL})")
+    set_layers_dtype(enc, torch.float32)
+    with torch.inference_mode():
+        heads = _off_path_outputs(modules, images)
+    want = {f"multi_res.ds{ds}": (1, 256 // ds, 256 // ds, raw) for ds in (4, 8, 16, 32)}
+    want.update(linear_pts3d=(1, 256, 256, 3), linear_gs=(1, 256, 256, raw))
+    for key, shape in want.items():
+        if tuple(heads[key].shape) != shape or not torch.isfinite(heads[key]).all():
+            raise AssertionError(f"{phase}: {key} {tuple(heads[key].shape)}, expected {shape} and finite")
+    log(phase, f"bf16 encoder output against fp32 on the same weights: mean rel err {res['bf16_feat_rel']:.4g} "
+               f"(limit {ORACLE_MEANS_REL}); bf16 device {res['bf16']['device_ms']:.3f} ms against fp32 "
+               f"{res['fp32']['device_ms']:.3f}; full-width heads on its blocks {_hooks(enc.cfg.enc_depth)} and "
+               f"its output: {want}, finite")
+    del modules, enc, out32, out16, heads
+    torch.cuda.empty_cache()
+    res["camera_outputs"] = _camera_on_card(phase)
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    mcfg = multi_cfg()
+    res["bin"] = {"eval_shapes": _bin_against_sort(phase, "eval_shapes", gen, 2 * 256 * 256, N_TARGET),
+                  "multi_view": _bin_against_sort(phase, "multi_view", gen, mcfg.pipeline.model.num_views * 256 * 256,
+                                                  multi_targets(mcfg))}
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4386,7 +4679,8 @@ PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "ras
           "refer_eval": phase_refer_eval, "refer_train": phase_refer_train, "refer_cli": phase_refer_cli,
           "val_slice": phase_val_slice, "validate": phase_validate, "evaluate": phase_evaluate,
           "dp_validate": phase_dp_validate, "train_cli": phase_train_cli, "dp_train": phase_dp_train,
-          "zero1_train": phase_zero1_train, "dp_train_cli": phase_dp_train_cli, "nccl": phase_nccl}
+          "zero1_train": phase_zero1_train, "dp_train_cli": phase_dp_train_cli, "nccl": phase_nccl,
+          "off_path": phase_off_path}
 
 
 T0 = time.perf_counter()
@@ -4415,6 +4709,21 @@ def _raster_sum(checks: list) -> dict:
     out["err"] = max(r["err"] for r in checks)
     out["bound_by"] = max(checks, key=lambda r: r["bound_ms"])["bound_by"]
     return out
+
+
+def _off_path_entry(name: str, off: dict) -> dict:
+    """A kernel's entry under "off_path": its launches in one encoder-only
+    forward, fp32 and bf16; for kernels 1 and 1b their times on that
+    forward's inputs; for kernel 4 its times at the eval and 8-view eval
+    shapes with the sort path's beside them."""
+    entry = {"launches": off["fp32"]["launches"].get(name, 0), "bf16_launches": off["bf16"]["launches"].get(name, 0)}
+    timed = {"flash_attn_rope": off["fp32"]["kernels"], "flash_attn_rope_bf16": off["bf16"]["kernels"]}.get(name)
+    if timed:
+        entry.update({k: timed[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    if name == "bin":
+        entry.update({shape: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "sort_ms")}
+                      for shape, r in off["bin"].items()})
+    return entry
 
 
 def main(argv=None) -> None:
@@ -4479,6 +4788,7 @@ def main(argv=None) -> None:
     ztr = run_phase("zero1_train")
     dcli = run_phase("dp_train_cli")
     nccl = run_phase("nccl")
+    off = run_phase("off_path")
     _SWEEP["tmp"].cleanup()
 
     # per kernel: the two-view path's launches and times (model kernels per
@@ -4497,6 +4807,8 @@ def main(argv=None) -> None:
              "raster": max(render_err["raster"], two_view["raster"]["err"]),
              "raster_bwd": max(bwd_err, tr["raster_bwd"]["err"], btr["raster_bwd"]["err"])}
     worst.update({k: max(worst[k], r["err"]) for k, r in tcli["kernels"].items()})
+    worst.update({k: max(worst[k], off[dt]["kernels"][k]["err"])
+                  for k, dt in (("flash_attn_rope", "fp32"), ("flash_attn_rope_bf16", "bf16"))})
     # the refer path's: the model kernels per refer forward on its own inputs
     # (the language layers' attention shape also on its own); no render
     # kernel 1b runs on the bf16 paths only: its launches are the bf16
@@ -4550,6 +4862,7 @@ def main(argv=None) -> None:
             "bf16_multi_view": {"launches": bmfwd["launches"].get(name, 0),
                                 **{k: bmfwd["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                                    if name in bmfwd["kernels"]}},
+            "off_path": _off_path_entry(name, off),
         })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
@@ -4560,7 +4873,7 @@ def main(argv=None) -> None:
              "multi_eval": mev, "multi_train": mtr, "refer_forward": rfwd, "refer_eval": rev, "refer_train": rtr,
              "refer_cli": rcli, "val_slice": vsl, "validate": val, "evaluate": evl, "train_cli": tcli,
              "dp_validate": dval, "dp_train": dtr, "zero1_train": ztr, "dp_train_cli": dcli, "nccl": nccl,
-             "sm_clock": SM_CLOCKS, "phase_seconds": PHASE_SECONDS}, indent=1, default=str))
+             "off_path": off, "sm_clock": SM_CLOCKS, "phase_seconds": PHASE_SECONDS}, indent=1, default=str))
     log("done", f"every phase passed; {len(TIMED_BY_EVENTS)} kernel times by CUDA events for want of a whole "
                 f"trace; seconds by phase {PHASE_SECONDS}, "
                 f"{sum(PHASE_SECONDS.values()):.1f} s in all, from the start {time.perf_counter() - T0:.1f} s")

@@ -1,6 +1,6 @@
 """Asymmetric CroCo backbones, counterparts of
 ``siu3r_tpu/models/backbone.py:AsymmetricCroCo`` (two views) and
-``AsymmetricCroCoMulti`` (V views).
+``AsymmetricCroCoMulti`` (V views), and the encoder-only ``CroCoEncoderOnly``.
 
 Both share one ViT encoder over every view with an intrinsic token (a
 Linear(9 -> C) of the flattened intrinsics) appended at the synthetic
@@ -23,13 +23,14 @@ is the decoders' stream (an fp32 embedding plus bf16 branches).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from siu3r_tpu_torch.config import CrocoCfg
-from siu3r_tpu_torch.models.layers import Block, DecoderBlock, LayerNorm, PatchEmbed
+from siu3r_tpu_torch.device import resolve_device
+from siu3r_tpu_torch.models.layers import Block, DecoderBlock, LayerNorm, PatchEmbed, init_weights
 
 
 @dataclasses.dataclass
@@ -51,17 +52,49 @@ class MultiViewBackboneOutput:
     shape: Tuple[int, int]
 
 
-class _CroCoBase(nn.Module):
-    def __init__(self, cfg: CrocoCfg, dtype: torch.dtype = torch.float32):
+class _CroCoEncoder(nn.Module):
+    """The ViT encoder: patch embedding, ``enc_blocks``, ``enc_norm`` and,
+    with ``intrinsic_token``, the intrinsic encoder (registered in that
+    order, the order of the state dict and of the seeded init)."""
+
+    def __init__(self, cfg: CrocoCfg, dtype: torch.dtype, intrinsic_token: bool):
         super().__init__()
         self.cfg = cfg
         c = cfg
         self.patch_embed = PatchEmbed(c.patch_size, c.enc_embed_dim, dtype=dtype)
-        self.intrinsic_encoder = nn.Linear(9, c.enc_embed_dim)
+        if intrinsic_token:
+            self.intrinsic_encoder = nn.Linear(9, c.enc_embed_dim)
         self.enc_blocks = nn.ModuleList(
             [Block(c.enc_embed_dim, c.enc_num_heads, rope_base=c.rope_base, dtype=dtype) for _ in range(c.enc_depth)]
         )
         self.enc_norm = LayerNorm(c.enc_embed_dim)
+
+    def _encode_flat(self, images_flat: torch.Tensor, intrinsics_flat: Optional[torch.Tensor] = None):
+        """N = B*V images -> (normed feat [N, L(+1), C], pos [N, L(+1), 2],
+        per-block raw outputs enc_depth x [N, L(+1), C]); the intrinsic
+        token is appended where ``intrinsics_flat`` is given."""
+        n, h, _, _ = images_flat.shape
+        x, pos = self.patch_embed(images_flat)
+        if intrinsics_flat is not None:
+            intr_tok = self.intrinsic_encoder(intrinsics_flat.reshape(n, 9))
+            x = torch.cat([x, intr_tok[:, None].to(x.dtype)], dim=1)  # the stream's dtype (oracle backbone.py:199)
+            gh = h // self.cfg.patch_size
+            # built on the device: a tensor from a host list, or an assigned
+            # Python number, is copied from the host and syncs the stream
+            add_pos = torch.zeros((n, 1, 2), dtype=pos.dtype, device=pos.device)
+            add_pos[..., 0].fill_(gh)
+            pos = torch.cat([pos, add_pos], dim=1)
+        all_feat = []
+        for blk in self.enc_blocks:
+            x = blk(x, pos)
+            all_feat.append(x)
+        return self.enc_norm(x), pos, all_feat
+
+
+class _CroCoBase(_CroCoEncoder):
+    def __init__(self, cfg: CrocoCfg, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, dtype, intrinsic_token=True)
+        c = cfg
         self.decoder_embed = nn.Linear(c.enc_embed_dim, c.dec_embed_dim)
         self.dec_blocks = nn.ModuleList(
             [DecoderBlock(c.dec_embed_dim, c.dec_num_heads, rope_base=c.rope_base, dtype=dtype)
@@ -72,25 +105,6 @@ class _CroCoBase(nn.Module):
              for _ in range(c.dec_depth)]
         )
         self.dec_norm = LayerNorm(c.dec_embed_dim)
-
-    def _encode_flat(self, images_flat: torch.Tensor, intrinsics_flat: torch.Tensor):
-        """N = B*V images -> (normed feat [N, L+1, C], pos [N, L+1, 2],
-        per-block raw outputs enc_depth x [N, L+1, C])."""
-        n, h, _, _ = images_flat.shape
-        x, pos = self.patch_embed(images_flat)
-        intr_tok = self.intrinsic_encoder(intrinsics_flat.reshape(n, 9))
-        x = torch.cat([x, intr_tok[:, None].to(x.dtype)], dim=1)  # the stream's dtype (oracle backbone.py:199)
-        gh = h // self.cfg.patch_size
-        # built on the device: a tensor from a host list, or an assigned
-        # Python number, is copied from the host and syncs the stream
-        add_pos = torch.zeros((n, 1, 2), dtype=pos.dtype, device=pos.device)
-        add_pos[..., 0].fill_(gh)
-        pos = torch.cat([pos, add_pos], dim=1)
-        all_feat = []
-        for blk in self.enc_blocks:
-            x = blk(x, pos)
-            all_feat.append(x)
-        return self.enc_norm(x), pos, all_feat
 
 
 class AsymmetricCroCo(_CroCoBase):
@@ -131,6 +145,40 @@ class AsymmetricCroCo(_CroCoBase):
             all_feat2=all2,
             dec1=[strip(t) for t in dec1],
             dec2=[strip(t) for t in dec2],
+            shape=(h, w),
+        )
+
+
+class CroCoEncoderOnly(_CroCoEncoder):
+    """The encoder-only backbone, counterpart of
+    ``siu3r_tpu/models/backbone.py:CroCoEncoderOnly``: the shared ViT encoder
+    over every view with no intrinsic token and no decoder. Built on
+    ``device`` (``cuda`` unless the caller names the CPU; raises without a
+    GPU) with the seeded init of ``SIU3RModel``; ``dtype`` is the blocks'
+    compute dtype."""
+
+    def __init__(self, cfg: CrocoCfg, dtype: torch.dtype = torch.float32, device: str | torch.device = "cuda",
+                 seed: int = 0):
+        dev = resolve_device(device)
+        with torch.device("meta"):
+            super().__init__(cfg, dtype, intrinsic_token=False)
+        self.to_empty(device=dev)
+        init_weights(self, torch.Generator(device=dev).manual_seed(seed))
+
+    def forward(self, images: torch.Tensor) -> BackboneOutput:
+        """images [B, V, H, W, 3] (V >= 2) -> the encoder's outputs for views
+        0 and 1; ``dec1`` and ``dec2`` are empty."""
+        b, v, h, w, _ = images.shape
+        feat, _, all_feat = self._encode_flat(images.reshape(b * v, h, w, 3))
+        l = feat.shape[1]
+        feat = feat.view(b, v, l, -1)
+        return BackboneOutput(
+            feat1=feat[:, 0],
+            feat2=feat[:, 1],
+            all_feat1=[t.view(b, v, l, -1)[:, 0] for t in all_feat],
+            all_feat2=[t.view(b, v, l, -1)[:, 1] for t in all_feat],
+            dec1=[],
+            dec2=[],
             shape=(h, w),
         )
 

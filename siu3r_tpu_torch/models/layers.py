@@ -239,6 +239,16 @@ class DecoderBlock(nn.Module):
         return q.reshape(b, vq, l, c)
 
 
+def set_layers_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """The compute dtype of every ``Linear``, ``Conv2d`` and
+    ``ConvTranspose2d`` (and every other layer with a ``compute_dtype``) in
+    ``module``, from the next call on; parameters untouched."""
+    for mod in module.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = dtype
+    return module
+
+
 def token_positions(h: int, w: int, device=None) -> torch.Tensor:
     """Integer (y, x) position of each patch token, row-major: [h*w, 2]."""
     yy, xx = torch.meshgrid(
@@ -277,3 +287,39 @@ def resize_nhwc(x: torch.Tensor, out_hw, align_corners: bool) -> torch.Tensor:
         align_corners=align_corners,
     )
     return y.permute(0, 2, 3, 1)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init of every parameter and buffer, in module order:
+    Linear/Conv/ConvTranspose weights and biases and packed attention
+    projections uniform in +-1/sqrt(fan_in) (torch's default bound), norms at
+    scale 1 / shift 0, embeddings and level embeddings N(0, 1), BatchNorm at
+    running mean 0 / var 1."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                w = mod.weight
+                receptive = w[0][0].numel() if w.dim() > 2 else 1
+                # ConvTranspose2d keeps its input channels first
+                in_ch = w.shape[0] if isinstance(mod, nn.ConvTranspose2d) else w.shape[1]
+                bound = (in_ch * receptive) ** -0.5
+                nn.init.uniform_(w, -bound, bound, generator=generator)
+                if mod.bias is not None:
+                    nn.init.uniform_(mod.bias, -bound, bound, generator=generator)
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)):
+                nn.init.ones_(mod.weight)
+                nn.init.zeros_(mod.bias)
+                if isinstance(mod, nn.BatchNorm2d):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+                    mod.num_batches_tracked.zero_()
+            elif isinstance(mod, nn.Embedding):
+                nn.init.normal_(mod.weight, generator=generator)
+            for pname, p in mod.named_parameters(recurse=False):
+                if pname == "level_embed":
+                    nn.init.normal_(p, generator=generator)
+                elif pname == "in_proj_weight":
+                    bound = p.shape[1] ** -0.5
+                    nn.init.uniform_(p, -bound, bound, generator=generator)
+                    nn.init.uniform_(mod.in_proj_bias, -bound, bound, generator=generator)
+    return model

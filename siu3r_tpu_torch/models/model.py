@@ -36,7 +36,7 @@ from siu3r_tpu_torch.models.adapter import CroCoViTAdapter
 from siu3r_tpu_torch.models.backbone import AsymmetricCroCo, AsymmetricCroCoMulti
 from siu3r_tpu_torch.models.gaussian_adapter import adapt_gaussians
 from siu3r_tpu_torch.models.heads.dpt import DPTHead, dpt_hooks, postprocess_pts3d
-from siu3r_tpu_torch.models.layers import DTYPES
+from siu3r_tpu_torch.models.layers import DTYPES, init_weights, set_layers_dtype
 from siu3r_tpu_torch.models.mask2former.model import SegOutput, VideoMask2Former
 from siu3r_tpu_torch.models.mask2former.postprocess import (
     panoptic_segmentation,
@@ -208,42 +208,6 @@ class SIU3RModel(nn.Module):
         return self._segment(multi_scale_feat, tuple(images.shape[2:4]), word_embeddings, text_tokens)
 
 
-def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init of every parameter and buffer, in module order:
-    Linear/Conv/ConvTranspose weights and biases and packed attention
-    projections uniform in +-1/sqrt(fan_in) (torch's default bound), norms at
-    scale 1 / shift 0, embeddings and level embeddings N(0, 1), BatchNorm at
-    running mean 0 / var 1."""
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-                w = mod.weight
-                receptive = w[0][0].numel() if w.dim() > 2 else 1
-                # ConvTranspose2d keeps its input channels first
-                in_ch = w.shape[0] if isinstance(mod, nn.ConvTranspose2d) else w.shape[1]
-                bound = (in_ch * receptive) ** -0.5
-                nn.init.uniform_(w, -bound, bound, generator=generator)
-                if mod.bias is not None:
-                    nn.init.uniform_(mod.bias, -bound, bound, generator=generator)
-            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
-                if isinstance(mod, nn.BatchNorm2d):
-                    mod.running_mean.zero_()
-                    mod.running_var.fill_(1.0)
-                    mod.num_batches_tracked.zero_()
-            elif isinstance(mod, nn.Embedding):
-                nn.init.normal_(mod.weight, generator=generator)
-            for pname, p in mod.named_parameters(recurse=False):
-                if pname == "level_embed":
-                    nn.init.normal_(p, generator=generator)
-                elif pname == "in_proj_weight":
-                    bound = p.shape[1] ** -0.5
-                    nn.init.uniform_(p, -bound, bound, generator=generator)
-                    nn.init.uniform_(mod.in_proj_bias, -bound, bound, generator=generator)
-    return model
-
-
 def set_compute_dtype(model: SIU3RModel, dtype: str) -> SIU3RModel:
     """Switch ``model``'s compute dtype ("float32" or "bfloat16") in place:
     the backbone's and the adapter's layers compute in it from the next call
@@ -252,9 +216,7 @@ def set_compute_dtype(model: SIU3RModel, dtype: str) -> SIU3RModel:
     if dtype not in DTYPES:
         raise ValueError(f"model.dtype is one of {sorted(DTYPES)}, not {dtype!r}")
     for part in (model.backbone, model.adapter):
-        for mod in part.modules():
-            if hasattr(mod, "compute_dtype"):
-                mod.compute_dtype = DTYPES[dtype]
+        set_layers_dtype(part, DTYPES[dtype])
     model.cfg = dataclasses.replace(model.cfg, dtype=dtype)
     return model
 

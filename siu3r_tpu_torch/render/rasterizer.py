@@ -25,10 +25,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from siu3r_tpu_torch.kernels.binning import bin_gaussians
+from siu3r_tpu_torch.kernels.binning import _flat, bin_gaussians
 from siu3r_tpu_torch.kernels.raster import raster
 from siu3r_tpu_torch.render.projection import Bound, ProjectedGaussians, project_gaussians
-from siu3r_tpu_torch.render.tiles import _ALPHA_MAX, _ALPHA_MIN, _CHUNK, SLOTS_X, SLOTS_Y, tile_grid
+from siu3r_tpu_torch.render.tiles import _ALPHA_MAX, _ALPHA_MIN, _CHUNK, SLOTS_X, SLOTS_Y, _tile_ranges, tile_grid
 
 
 def pack_params(proj: ProjectedGaussians, opacities: torch.Tensor) -> torch.Tensor:
@@ -47,6 +47,54 @@ def pack_params(proj: ProjectedGaussians, opacities: torch.Tensor) -> torch.Tens
         ],
         dim=-1,
     )
+
+
+def bin_gaussians_sort(
+    proj: ProjectedGaussians,
+    image_size: Tuple[int, int],
+    max_per_tile: int,
+    slots_y: int,
+    slots_x: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile binning by one sort of packed keys, counterpart of
+    ``siu3r_tpu/render/rasterizer.py:bin_gaussians_sort``: the same
+    (table [..., T, K], counts [..., T]) as ``kernels.binning.bin_gaussians``
+    from the same [..., G] projected Gaussians (table entries past a tile's
+    count are some gaussian id). No render path selects it: it is a second,
+    independent oracle of the binning kernel.
+
+    Each (gaussian, slot) pair whose slot lies in the gaussian's slot-clamped
+    tile box gives the key ((view * T + tile) * G + depth rank), int64, the
+    rank from a stable sort of depth; every view's keys go through one sort,
+    so each (view, tile) segment lists its gaussians in depth order."""
+    lead = proj.depth.shape[:-1]
+    p = _flat(proj)
+    n, g = p.depth.shape
+    n_ty, n_tx = tile_grid(image_size)
+    n_tiles = n_ty * n_tx
+    dev = p.depth.device
+
+    order = torch.sort(p.depth, dim=-1, stable=True).indices  # [N, G]
+    rank = torch.empty_like(order).scatter_(1, order, torch.arange(g, device=dev).expand(n, g))
+    y0, y1, x0, x1, alive = _tile_ranges(p, n_ty, n_tx, slots_y, slots_x)
+    sy = torch.arange(slots_y, device=dev)[:, None]
+    sx = torch.arange(slots_x, device=dev)[None, :]
+    ty = y0[..., None, None] + sy  # [N, G, slots_y, slots_x]
+    tx = x0[..., None, None] + sx
+    ok = alive[..., None, None] & (ty <= y1[..., None, None]) & (tx <= x1[..., None, None])
+    view = torch.arange(n, device=dev)[:, None, None, None]
+    key = (view * n_tiles + ty * n_tx + tx) * g + rank[..., None, None]  # int64, as view and rank are
+    invalid = n * n_tiles * g  # past every segment
+    sorted_keys = torch.where(ok, key, invalid).reshape(-1).sort().values
+
+    segments = sorted_keys // g
+    seg_range = torch.arange(n * n_tiles, device=dev)
+    starts = torch.searchsorted(segments, seg_range)
+    counts = (torch.searchsorted(segments, seg_range + 1) - starts).clamp(max=max_per_tile)
+    idx = (starts[:, None] + torch.arange(max_per_tile, device=dev)).clamp(max=sorted_keys.numel() - 1)
+    ranks = (sorted_keys[idx] % g).reshape(n, n_tiles * max_per_tile)
+    table = order.gather(1, ranks).reshape(n, n_tiles, max_per_tile).to(torch.int32)
+    return table.reshape(*lead, n_tiles, max_per_tile), counts.to(torch.int32).reshape(*lead, n_tiles)
 
 
 def rasterize_multi(

@@ -21,7 +21,10 @@ decoder's layers do; its ``text_embed.embedding`` becomes
 ships no text encoder, so no reference checkpoint holds one, and the JAX
 package learns it from scratch (``siu3r_tpu/models/model.py:82-87``); carry
 it across by hand (``params["text_embed"] = {"embedding": weight}``).
-``lpips_params_from_jax`` carries the LPIPS network's parameters. A
+``lpips_params_from_jax`` carries the LPIPS network's parameters, and
+``encoder_only_state_dict_from_jax``, ``linear_head_state_dict_from_jax``
+and ``multi_res_head_state_dict_from_jax`` those of the modules that no
+model builds (each from that module's own ``params`` tree). A
 reference Lightning ``.ckpt`` loads into the port through
 ``load_checkpoint``, which strips the pipeline's ``model.`` prefix.
 """
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from siu3r_tpu_torch.config import ModelCfg
+from siu3r_tpu_torch.models.heads.dpt import MULTI_RES_SCALES
 
 State = Dict[str, torch.Tensor]
 
@@ -102,13 +106,17 @@ def _dec_block(out: State, t, p: str) -> None:
     _norm(out, t["norm_y"], f"{p}.norm_y")
 
 
+def _encoder(out: State, t, enc_depth: int, p: str) -> None:
+    _conv(out, t["patch_embed"]["proj"], f"{p}patch_embed.proj")
+    for i in range(enc_depth):
+        _enc_block(out, _unstack(t["enc_blocks"]["block"], i), f"{p}enc_blocks.{i}")
+    _norm(out, t["enc_norm"], f"{p}enc_norm")
+
+
 def _backbone(out: State, t, cfg: ModelCfg) -> None:
     c = cfg.croco
-    _conv(out, t["patch_embed"]["proj"], "backbone.patch_embed.proj")
+    _encoder(out, t, c.enc_depth, "backbone.")
     _linear(out, t["intrinsic_encoder"], "backbone.intrinsic_encoder")
-    for i in range(c.enc_depth):
-        _enc_block(out, _unstack(t["enc_blocks"]["block"], i), f"backbone.enc_blocks.{i}")
-    _norm(out, t["enc_norm"], "backbone.enc_norm")
     _linear(out, t["decoder_embed"], "backbone.decoder_embed")
     for i in range(c.dec_depth):
         pair = _unstack(t["dec_blocks"], i)
@@ -204,21 +212,27 @@ def _mask2former(out: State, t, cfg: ModelCfg) -> None:
             _linear(out, t[f"{name}_{i}"], f"mask2former.{name}.{i}")
 
 
-def _dpt_head(out: State, t, p: str, head_type: str) -> None:
-    _conv(out, t["act_0_conv"], f"{p}.dpt.act_postprocess.0.0")
-    _conv_transpose(out, t["act_0_up"], f"{p}.dpt.act_postprocess.0.1")
-    _conv(out, t["act_1_conv"], f"{p}.dpt.act_postprocess.1.0")
-    _conv_transpose(out, t["act_1_up"], f"{p}.dpt.act_postprocess.1.1")
-    _conv(out, t["act_2_conv"], f"{p}.dpt.act_postprocess.2.0")
-    _conv(out, t["act_3_conv"], f"{p}.dpt.act_postprocess.3.0")
-    _conv(out, t["act_3_down"], f"{p}.dpt.act_postprocess.3.1")
+def _dpt_trunk(out: State, t, p: str) -> None:
+    """The reassemble layers and the scratch of a DPT head under ``p``
+    (the prefix of its ``dpt`` module)."""
+    _conv(out, t["act_0_conv"], f"{p}.act_postprocess.0.0")
+    _conv_transpose(out, t["act_0_up"], f"{p}.act_postprocess.0.1")
+    _conv(out, t["act_1_conv"], f"{p}.act_postprocess.1.0")
+    _conv_transpose(out, t["act_1_up"], f"{p}.act_postprocess.1.1")
+    _conv(out, t["act_2_conv"], f"{p}.act_postprocess.2.0")
+    _conv(out, t["act_3_conv"], f"{p}.act_postprocess.3.0")
+    _conv(out, t["act_3_down"], f"{p}.act_postprocess.3.1")
     for i in range(1, 5):
-        _conv(out, t[f"layer{i}_rn"], f"{p}.dpt.scratch.layer{i}_rn")
-        rf, trf = f"{p}.dpt.scratch.refinenet{i}", t[f"refinenet{i}"]
+        _conv(out, t[f"layer{i}_rn"], f"{p}.scratch.layer{i}_rn")
+        rf, trf = f"{p}.scratch.refinenet{i}", t[f"refinenet{i}"]
         for unit in ("resConfUnit1", "resConfUnit2") if i < 4 else ("resConfUnit2",):
             for conv in ("conv1", "conv2"):
                 _conv(out, trf[unit][conv], f"{rf}.{unit}.{conv}")
         _conv(out, trf["out_conv"], f"{rf}.out_conv")
+
+
+def _dpt_head(out: State, t, p: str, head_type: str) -> None:
+    _dpt_trunk(out, t, f"{p}.dpt")
     if head_type == "regression":
         _conv(out, t["head_conv1"], f"{p}.dpt.head.0")
         _conv(out, t["head_conv2"], f"{p}.dpt.head.2")
@@ -242,6 +256,33 @@ def state_dict_from_jax(variables: Dict[str, Any], cfg: ModelCfg) -> State:
         _dpt_head(out, params[head], head, "gs_params")
     if "text_embed" in params:
         out["text_embed.weight"] = _t(params["text_embed"]["embedding"])
+    return out
+
+
+def encoder_only_state_dict_from_jax(params: Dict[str, Any], enc_depth: int) -> State:
+    """The JAX package's ``CroCoEncoderOnly`` parameters (its ``params``
+    tree, numpy leaves) -> the port's ``CroCoEncoderOnly`` state_dict."""
+    out: State = {}
+    _encoder(out, params, enc_depth, "")
+    return out
+
+
+def linear_head_state_dict_from_jax(params: Dict[str, Any]) -> State:
+    """``LinearPts3d`` or ``LinearGS`` parameters -> the port's head's
+    state_dict."""
+    out: State = {}
+    _linear(out, params["proj"], "proj")
+    return out
+
+
+def multi_res_head_state_dict_from_jax(params: Dict[str, Any]) -> State:
+    """``MultiResDPTGSHead`` parameters -> the port's head's state_dict: the
+    trunk as a DPT head's, and the per-scale parts under their JAX names."""
+    out: State = {}
+    _dpt_trunk(out, params, "dpt")
+    for ds in MULTI_RES_SCALES:
+        for name in (f"input_merger_ds{ds}", f"head_ds{ds}_conv1", f"head_ds{ds}_conv2"):
+            _conv(out, params[name], f"dpt.{name}")
     return out
 
 
