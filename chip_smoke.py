@@ -174,6 +174,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``bin_gaussians_sort`` (tables up to each count, counts exact) at the
      eval shapes (6 views, G = 131,072, K = 4096) and at the 8-view eval's
      (10 views, G = 524,288), the sort path timed beside the kernel.
+ 29. fullwidth: configs/scannet.yaml's model at every width (ScanNet's
+     labels, 16 lift slots, SH degree 4), cut to 4 / 4 + 4 blocks and 4 + 1
+     Mask2Former layers, with weights drawn from numpy
+     (tests/torch_fullwidth_common.py), held against the JAX package's
+     numbers for the same weights and inputs (tests/torch_fullwidth_ref.npz):
+     one ``Pipeline.eval_step`` over the fixture's 2 framed targets, its
+     launches counted with no host sync (kernels 1-5), then the Gaussian
+     fields, class logits and kept queries within rtol 1e-3 / atol 1e-4 x
+     the field's largest magnitude, the label maps exact outside the
+     reference's ties, and colour, depth and alpha within 2e-4 on 99.9% of
+     the pixels, the masked attention given the reference's decision where
+     its logit lies within 1e-4 of 0.
 The data-parallel phases start this script once a rank (``--rank_worker``)
 under ``python -m torch.distributed.run --standalone``, and fail unless
 every rank exits 0 and writes its result. Every phase logs the SM clock
@@ -192,7 +204,7 @@ time on its inputs; under "dp_train", "zero1_train" and "dp_validate" each rank'
 launches, of one step and of the whole sweep; under "nccl" one step's;
 under "off_path" those of one encoder-only forward in fp32 and in bf16,
 kernels 1 and 1b timed on its inputs, and kernel 4's times with the sort
-path's beside them)
+path's beside them; under "fullwidth" those of its eval step)
 and, last, the device line.
 ``--phases`` runs the named phases only (after 1 and 2) and prints neither.
 Imports nothing of JAX or of the JAX package.
@@ -4656,6 +4668,86 @@ def phase_off_path() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 29: full width against the JAX package
+
+
+def _fullwidth_common():
+    """tests/torch_fullwidth_common.py: the full-width config, its numpy
+    weights and inputs (numpy, torch and the port only)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_fullwidth_common
+
+    return torch_fullwidth_common
+
+
+def phase_fullwidth() -> dict:
+    """configs/scannet.yaml's model at every width, cut to 4 / 4 + 4 blocks
+    and 4 + 1 Mask2Former layers, with weights drawn from numpy
+    (tests/torch_fullwidth_common.py), on the card against the JAX package's
+    numbers for the same weights and inputs (tests/torch_fullwidth_ref.npz):
+    ``Pipeline.eval_step`` over the two views and the fixture's 2 framed
+    targets, its launches counted (kernels 1-3 in the forward, 4 and 5 in
+    the render) with no host sync; then, with the masked attention given the
+    reference's decision at its ties, the subset of every Gaussian field, the
+    class logits and kept queries within rtol 1e-3 / atol 1e-4 x the field's
+    largest magnitude, the label maps exact outside the reference's ties,
+    colour, depth and alpha within 2e-4 on 99.9% of the pixels."""
+    from siu3r_tpu_torch.pipeline import Pipeline
+
+    phase = "fullwidth"
+    C = _fullwidth_common()
+    with np.load(C.FIXTURE) as f:
+        fx = {k: f[k] for k in f.files}
+    root = two_view_cfg()
+    root.pipeline.model = mcfg = C.fullwidth_cfg("cut")
+    pipe = Pipeline(root, device="cuda", seed=0)
+    C.fill_numpy_weights(pipe.model)
+    images, intr = (torch.from_numpy(x).cuda() for x in C.fullwidth_inputs(mcfg))
+    targets = tuple(torch.from_numpy(fx[k]).cuda() for k in ("target_ext", "target_intr"))
+    batch = _eval_batch(images, intr, targets)
+    expected = {**expected_launches(mcfg), "bin": 1, "raster": 2}
+    _counted_run(phase, lambda: pipe.eval_step(batch), expected)
+    log(phase, f"Pipeline.eval_step at full width, depth 4 / 4 + 4 (Mask2Former 4 + 1), numpy weights, "
+               f"{C.N_TARGETS} framed targets: launches {expected} (expected), no host sync")
+
+    layers = mcfg.mask2former.decoder_layers
+    ties = [(fx[f"mask_ties_{i}"], fx[f"mask_excl_{i}"]) for i in range(layers)]
+    with C.reference_ties(pipe.model, ties) as changed:
+        out, render, qc = pipe.eval_step(batch)
+    sub = torch.from_numpy(fx["subset"]).cuda()
+    floats = {f: (getattr(out.gaussians, f) if f == "seg_query_scores" else getattr(out.gaussians, f)[:, sub],
+                  fx[f"g_{f}"], float(fx[f"scale_{f}"])) for f in C.GAUSSIAN_FIELDS}
+    floats["class_logits"] = (out.seg.class_queries_logits, fx["class_logits"], None)
+    excess = {k: C.excess(got, want, scale=scale) for k, (got, want, scale) in floats.items()}
+    largest = {k: (got.float().cpu() - torch.from_numpy(want)).abs().max().item()
+               for k, (got, want, _) in floats.items()}
+    keep_equal = bool(np.array_equal(out.post["keep"].cpu().numpy(), fx["keep"]))
+    misses = {k: C.label_misses(out.post[k], fx[k], fx["label_ties"]) for k in ("semantic", "segmentation")}
+    shares = {k: C.render_share(getattr(render, k), fx[k]) for k in ("color", "depth", "alpha")}
+    render_abs = {k: (getattr(render, k).cpu() - torch.from_numpy(fx[k])).abs().max().item()
+                  for k in ("color", "depth", "alpha")}
+    n_changed = [int(c) for c in changed]
+    text = lambda d, fmt: ", ".join(f"{k} {v:{fmt}}" for k, v in d.items())
+    log(phase, f"against the JAX package: excess over rtol {C.RTOL} / atol {C.ATOL_SCALE} x max (<= 0 passes) "
+               f"{text(excess, '.3g')}; largest abs errors {text(largest, '.3g')}; kept queries equal {keep_equal} "
+               f"({int(fx['keep'].sum())} kept); labels differing (outside the reference's "
+               f"{len(fx['label_ties'])} ties) " + ", ".join(f"{k} {d} ({o})" for k, (d, o) in misses.items())
+               + f"; masked-attention tie bits given the reference's decision {n_changed} of "
+               f"{[len(i) for i, _ in ties]}; render share within {C.RENDER_ATOL} {text(shares, '.6f')} "
+               f"(largest abs {text(render_abs, '.3g')}), mean alpha {render.alpha.mean().item():.3f}")
+    bad = [k for k, v in excess.items() if v > 0]
+    bad += [k for k, (_, outside) in misses.items() if outside]
+    bad += [k for k, v in shares.items() if v < C.RENDER_SHARE]
+    if not keep_equal:
+        bad.append("keep")
+    if bad:
+        raise AssertionError(f"{phase}: the GPU run misses the JAX package's numbers in {bad}")
+    del out, render, qc, pipe
+    torch.cuda.empty_cache()
+    return dict(launches=expected, excess=excess, largest_abs=largest, label_misses=misses, render_share=shares,
+                render_abs=render_abs, keep_equal=keep_equal, tie_bits_changed=n_changed)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4680,7 +4772,7 @@ PHASES = {"kernels": phase_kernels, "render_kernels": phase_render_kernels, "ras
           "val_slice": phase_val_slice, "validate": phase_validate, "evaluate": phase_evaluate,
           "dp_validate": phase_dp_validate, "train_cli": phase_train_cli, "dp_train": phase_dp_train,
           "zero1_train": phase_zero1_train, "dp_train_cli": phase_dp_train_cli, "nccl": phase_nccl,
-          "off_path": phase_off_path}
+          "off_path": phase_off_path, "fullwidth": phase_fullwidth}
 
 
 T0 = time.perf_counter()
@@ -4789,6 +4881,7 @@ def main(argv=None) -> None:
     dcli = run_phase("dp_train_cli")
     nccl = run_phase("nccl")
     off = run_phase("off_path")
+    fw = run_phase("fullwidth")
     _SWEEP["tmp"].cleanup()
 
     # per kernel: the two-view path's launches and times (model kernels per
@@ -4863,6 +4956,9 @@ def main(argv=None) -> None:
                                 **{k: bmfwd["kernels"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                                    if name in bmfwd["kernels"]}},
             "off_path": _off_path_entry(name, off),
+            # one eval step of the full-width model held against the JAX
+            # package's numbers (phase fullwidth)
+            "fullwidth": {"launches": fw["launches"].get(name, 0)},
         })
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
@@ -4873,7 +4969,8 @@ def main(argv=None) -> None:
              "multi_eval": mev, "multi_train": mtr, "refer_forward": rfwd, "refer_eval": rev, "refer_train": rtr,
              "refer_cli": rcli, "val_slice": vsl, "validate": val, "evaluate": evl, "train_cli": tcli,
              "dp_validate": dval, "dp_train": dtr, "zero1_train": ztr, "dp_train_cli": dcli, "nccl": nccl,
-             "off_path": off, "sm_clock": SM_CLOCKS, "phase_seconds": PHASE_SECONDS}, indent=1, default=str))
+             "off_path": off, "fullwidth": fw, "sm_clock": SM_CLOCKS, "phase_seconds": PHASE_SECONDS},
+            indent=1, default=str))
     log("done", f"every phase passed; {len(TIMED_BY_EVENTS)} kernel times by CUDA events for want of a whole "
                 f"trace; seconds by phase {PHASE_SECONDS}, "
                 f"{sum(PHASE_SECONDS.values()):.1f} s in all, from the start {time.perf_counter() - T0:.1f} s")
