@@ -129,18 +129,23 @@ Phases, in order; any failure raises and the script exits non-zero:
  21. evaluate: ``python -m siu3r_tpu_torch.cli.evaluate`` (its own process)
      on phase 20's directory gives its results.json value for value;
  22. train_cli: ``python -m siu3r_tpu_torch.cli.train --config
-     configs/scannet.yaml`` (its own process) at full width (the depth cut
-     to 4 encoder and 2 + 2 decoder blocks) and B = 3 with
-     gradient accumulation k = 2 for 4 steps from a training state of biased
-     weights W (finite records, train_viz PNGs, one checkpoint whose heads
-     moved from W by more than their decay; a resumed CLI run is phase
-     26's, in two ranks and in one process); in this process from W at B =
-     3, k = 2: no parameter moves after micro-step 1, every trained part (not the frozen encoder) by more
-     than its decay after micro-step 2, then micro-steps timed, each
-     covered and swept, with their host syncs and peak memory, the binning,
-     raster and raster_bwd kernels held against their plain versions on a
-     timed micro-step's inputs, and the training state's size, save and
-     restore seconds;
+     configs/concat.yaml`` (its own process; the reference's published
+     training recipe) at full width (the depth cut to 4 encoder and 2 + 2
+     decoder blocks) and B = 3 on a synthetic concat root (the ScanNet scenes
+     of phase 20, six ScanNet++ scenes in PNG, one Replica scene counting 50
+     times, its overlap table an iou.pt) with gradient accumulation k = 2
+     for 4 steps from a training state of biased weights W (the CLI's steps
+     an epoch as this process's loader's, finite records, train_viz PNGs,
+     one checkpoint inside epoch 0 whose heads moved from W by more than
+     their decay; the items each member gave the run, at least one each; a
+     resumed CLI run is phase 26's, in two ranks and in one process); in
+     this process from W on the CLI's first four batches at B = 3, k = 2:
+     no parameter moves after micro-step 1, every trained part (not the
+     frozen encoder) by more than its decay after micro-step 2, then
+     micro-steps timed, each covered and swept, with their host syncs and
+     peak memory, the binning, raster and raster_bwd kernels held against
+     their plain versions on a timed micro-step's inputs, and the training
+     state's size, save and restore seconds;
  23. dp_validate (after evaluate): ``cli/validate`` under ``torchrun
      --nproc_per_node 2 --dist_backend gloo`` (two ranks share the card;
      NCCL refuses that) with phase 20's weights and root: the one-rank
@@ -3116,26 +3121,34 @@ def sm_clock() -> str:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def _scannet_root(root: Path, seed: int) -> None:
+def _scannet_root(root: Path, seed: int, colour: str = "jpg", train_scenes: int = TRAIN_SCENES,
+                  scene: str = "scene{:04d}_00", iou_pt: bool = False, val: bool = True) -> None:
     """A ScanNet root at 256x256 in the layout the dataset reads
-    (tests/test_cli_smoke.py's): ``train`` with TRAIN_SCENES scenes and
-    ``val`` with one, each of SCENE_FRAMES frames with colour, 16-bit depth,
-    extrinsics and panoptic PNGs (a wall, a floor and four objects of four
-    thing classes, moving from frame to frame), ``iou.npy``, and
-    ``val_pair.json`` with VAL_SCENES pairs of 2 context and 6 target views."""
+    (tests/test_cli_smoke.py's): ``train`` with ``train_scenes`` scenes and
+    ``val`` with one, each of SCENE_FRAMES frames with colour (``colour``:
+    jpg, or png as ScanNet++ stores it), 16-bit depth, extrinsics and
+    panoptic PNGs (a wall, a floor and four objects of four thing classes,
+    moving from frame to frame), an overlap table of 0.5 (inside ScanNet's
+    and Replica's windows; ``iou.pt`` written by ``torch.save`` as the
+    reference's data has it, else ``iou.npy``), and ``val_pair.json`` with
+    VAL_SCENES pairs of 2 context and 6 target views (no val split where
+    ``val`` is False). Scene i is named ``scene.format(i)``."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
     s = SCENE_SIZE
-    for split, n_scenes in (("train", TRAIN_SCENES), ("val", 1)):
+    for split, n_scenes in (("train", train_scenes), ("val", 1 if val else 0)):
         for si in range(n_scenes):
-            scan = root / split / f"scene{si:04d}_00"
+            scan = root / split / scene.format(si)
             for sub in ("color", "depth", "extrinsic", "panoptic"):
                 (scan / sub).mkdir(parents=True)
             np.savetxt(scan / "intrinsic.txt", np.array([[1.24 * s, 0, s / 2], [0, 1.24 * s, s / 2], [0, 0, 1]]))
-            np.save(scan / "iou.npy", np.full((100, 100), 0.5))
+            if iou_pt:
+                torch.save(torch.full((100, 100), 0.5, dtype=torch.float64), scan / "iou.pt")
+            else:
+                np.save(scan / "iou.npy", np.full((100, 100), 0.5))
             for i in range(SCENE_FRAMES):
-                Image.fromarray((rng.rand(s, s, 3) * 255).astype(np.uint8)).save(scan / "color" / f"{i}.jpg")
+                Image.fromarray((rng.rand(s, s, 3) * 255).astype(np.uint8)).save(scan / "color" / f"{i}.{colour}")
                 Image.fromarray((rng.rand(s, s) * 4000 + 500).astype(np.uint16)).save(scan / "depth" / f"{i}.png")
                 ext = np.eye(4)
                 ext[0, 3] = 0.01 * i  # a train pair is 10 to 15 frames apart: both see what _scored puts in front
@@ -3149,9 +3162,10 @@ def _scannet_root(root: Path, seed: int) -> None:
                     seg[y0:y1, x0:x1] = cls * 1000 + inst
                 Image.fromarray(np.stack([seg % 256, (seg // 256) % 256, seg // 65536], -1).astype(np.uint8)).save(
                     scan / "panoptic" / f"{i}.png")
-    pairs = [{"scan": "scene0000_00", "context_ids": [c, c + 5], "target_ids": [c, c + 1, c + 2, c + 3, c + 4, c + 5]}
-             for c in range(VAL_SCENES)]
-    (root / "val_pair.json").write_text(json.dumps(pairs))
+    if val:
+        pairs = [{"scan": scene.format(0), "context_ids": [c, c + 5],
+                  "target_ids": [c, c + 1, c + 2, c + 3, c + 4, c + 5]} for c in range(VAL_SCENES)]
+        (root / "val_pair.json").write_text(json.dumps(pairs))
 
 
 def _scored(model, label: int, depth: float = 0.0, scale: float = 0.0) -> None:
@@ -3350,6 +3364,39 @@ def _sweep_root() -> Path:
         _scannet_root(root, seed=11)
         _SWEEP["root"] = root
     return _SWEEP["root"]
+
+
+# configs/concat.yaml's members beside the sweep's ScanNet root: (sub-root,
+# its scenes' names, _scannet_root's arguments). Six ScanNet++ scenes: with
+# Replica's one scene counting 50 times, the loader's epoch-0 order (seed 0,
+# 62 items) reaches a ScanNet++ item in its third batch, inside
+# TRAIN_CLI_STEPS; with one it came at the fifteenth. Replica's overlap
+# table is an iou.pt, read through torch.load
+CONCAT_MEMBERS = (("scannetpp", "pp{:04d}_00", dict(seed=12, colour="png", train_scenes=6)),
+                  ("replica", "room{}", dict(seed=13, train_scenes=1, iou_pt=True)))
+
+
+def _concat_root() -> Path:
+    """The concat dataset's root (``{root}/scannet``, ``{root}/scannetpp``,
+    ``{root}/replica``): ``scannet`` is the sweep's root (a link), the
+    others train splits written by ``_scannet_root``."""
+    if "concat" not in _SWEEP:
+        scannet = _sweep_root()
+        root = Path(_SWEEP["tmp"].name) / "concat"
+        root.mkdir()
+        (root / "scannet").symlink_to(scannet, target_is_directory=True)
+        for sub, scene, kw in CONCAT_MEMBERS:
+            _scannet_root(root / sub, scene=scene, val=False, **kw)
+        _SWEEP["concat"] = root
+    return _SWEEP["concat"]
+
+
+def _member_of(scene_name: str) -> str:
+    """The concat member a train item's scene belongs to, by its name."""
+    for sub, scene, _ in CONCAT_MEMBERS:
+        if scene_name.startswith(scene.split("{")[0]):
+            return sub
+    return "scannet"
 
 
 def _timed_stage(timer, name: str, module, attr: str):
@@ -3553,12 +3600,14 @@ def _cut_depth(cfg):
 
 def _train_cli(root: Path, out: Path, max_steps: int, resume: Path) -> tuple[float, str]:
     """``python -m siu3r_tpu_torch.cli.train --resume resume`` (its own
-    process) on configs/scannet.yaml at ``root``, k = 2, a visualisation
-    every 2 steps, a record every step; (seconds, its standard output)."""
+    process) on configs/concat.yaml at the concat root ``root``, k = 2, a
+    visualisation every 2 steps, a record every step; (seconds, its standard
+    output)."""
     here = Path(__file__).resolve().parent
     t0 = time.perf_counter()
     cli = subprocess.run([sys.executable, "-m", "siu3r_tpu_torch.cli.train", "--resume", str(resume),
-                          "--config", str(here / "configs" / "scannet.yaml"), "trainer.devices=1",
+                          "--config", str(here / "configs" / "concat.yaml"), "datamodule.dataset_cfg.name=concat",
+                          "trainer.devices=1",
                           f"trainer.max_steps={max_steps}", "trainer.accumulate_grad_batches=2",
                           "pipeline.log_training_result_interval=2", "trainer.log_every_n_steps=1",
                           "datamodule.train_loader_cfg.num_workers=2", f"datamodule.dataset_cfg.root={root}",
@@ -3618,18 +3667,24 @@ def _check_moves(phase: str, moves: dict) -> None:
 
 
 def phase_train_cli() -> dict:
-    """``python -m siu3r_tpu_torch.cli.train --config configs/scannet.yaml
-    trainer.devices=1 trainer.max_steps=4 trainer.accumulate_grad_batches=2
-    pipeline.log_training_result_interval=2`` (its own process) at full
-    width with the depth cut to CUT_DEPTH, and B = 3, on the synthetic root
-    (two steps an epoch), from a
-    training state before the first epoch (``--resume`` of epoch -1, step 0)
-    whose weights W are a seeded init biased by ``_scored`` so that the
-    data's target views see the Gaussians: four finite records in
-    metrics.jsonl, rgb, rgb_gt and depth PNGs under train_viz/, one
-    checkpoint, whose frozen encoder equals W's and whose trained parts, the
-    Gaussian and depth heads included, moved from W by more than their decay
+    """``python -m siu3r_tpu_torch.cli.train --config configs/concat.yaml
+    datamodule.dataset_cfg.name=concat trainer.devices=1 trainer.max_steps=4
+    trainer.accumulate_grad_batches=2 pipeline.log_training_result_interval=2``
+    (its own process) at full width with the depth cut to CUT_DEPTH, and
+    B = 3, on the synthetic concat root (``_concat_root``: the sweep's six
+    ScanNet scenes, six ScanNet++ scenes in PNG and one Replica scene, which
+    counts 50 times: 62 items, 20 steps an epoch), from a training state
+    before the first epoch (``--resume`` of epoch -1, step 0) whose weights
+    W are a seeded init biased by ``_scored`` so that the data's target
+    views see the Gaussians: the CLI's steps an epoch equal to this
+    process's loader's, four finite records in metrics.jsonl, rgb, rgb_gt
+    and depth PNGs under train_viz/, one checkpoint (epoch 0, inside it),
+    whose frozen encoder equals W's and whose trained parts, the Gaussian and
+    depth heads included, moved from W by more than their decay
     (``_check_moves``: gradients reached every head through the render).
+    The items each member gave the run are counted from the scene names of
+    the loader's first four batches in this process (the CLI's seed, epoch
+    and order), and each member must give one.
     (A resumed run of the CLI, in one process and in two ranks, is phase
     dp_train_cli's.) In this process from W (the same cut), B = 3,
     k = 2: every parameter bitwise unchanged after micro-step 1; after
@@ -3641,24 +3696,38 @@ def phase_train_cli() -> dict:
     and the training state's size on disk, save and restore seconds."""
     from siu3r_tpu_torch.checkpoint_io import restore_train_state, save_train_state
     from siu3r_tpu_torch.cli.train import build_dataset, step_generator
+    from siu3r_tpu_torch.config import bind_scannet_classes, load_config
     from siu3r_tpu_torch.kernels import _build
     from siu3r_tpu_torch.data import Loader
     from siu3r_tpu_torch.pipeline import Pipeline
     from siu3r_tpu_torch.train.optimizer import MultiSteps
 
-    root = _sweep_root()
+    root = _concat_root()
     tmp = Path(_SWEEP["tmp"].name)
-    cfg = _cut_depth(_sweep_cfg(root))
-    cfg.mode = "train"
-    cfg.datamodule.dataset_cfg.num_extra_target_views = 2
+    cfg = _cut_depth(bind_scannet_classes(load_config(Path(__file__).resolve().parent / "configs" / "concat.yaml",
+                                                      [f"datamodule.dataset_cfg.root={root}"])))
     cfg.trainer.accumulate_grad_batches = 2
-    loader = Loader(build_dataset(cfg, train=True), batch_size=cfg.datamodule.train_loader_cfg.batch_size,
-                    num_workers=2, seed=0)
+    if (cfg.mode, cfg.datamodule.dataset_cfg.name, cfg.datamodule.dataset_cfg.num_extra_target_views) != (
+            "train", "concat", 2):
+        raise AssertionError(f"train_cli: configs/concat.yaml is not a concat training config: {cfg.datamodule}")
+    dataset = build_dataset(cfg, train=True)
+    loader = Loader(dataset, batch_size=cfg.datamodule.train_loader_cfg.batch_size, num_workers=2, seed=cfg.seed)
+    loader.set_epoch(0)
     pipe = Pipeline(cfg, device="cuda", seed=5).init_train(steps_per_epoch=len(loader))
     _scored(pipe.model, 4, depth=0.5, scale=30.0)  # the data's cameras, as phase validate
     params = dict(pipe.model.named_parameters())
     start = tmp / "start.pt"
     save_train_state(start, pipe, -1, 0)
+    # the CLI's first TRAIN_CLI_STEPS batches: the same dataset, seed, epoch
+    # and batch order (two workers draw the views in either order, never
+    # another scene); the items each member gave the run by scene name
+    batch_iter = iter(loader)
+    host = [next(batch_iter) for _ in range(TRAIN_CLI_STEPS)]
+    batch_iter.close()
+    counted = collections.Counter(_member_of(name) for b in host for name in b["scene_names"])
+    members = {sub: counted.get(sub, 0) for sub in ("scannet", "scannetpp", "replica")}
+    if min(members.values()) < 1 or len(dataset.datasets) != 3:
+        raise AssertionError(f"train_cli: items each member gave the run {members}: a member gave none")
 
     out = tmp / "train_cli"
     first_s, stdout = _train_cli(root, out, TRAIN_CLI_STEPS, resume=start)
@@ -3666,28 +3735,37 @@ def phase_train_cli() -> dict:
     records = _train_records(out)
     viz_dirs = {p.parent.name for p in (out / "train_viz").rglob("*.png")}
     ckpts = sorted((out / "checkpoints").iterdir())
-    if ("epoch 0, step 0" not in stdout or [r["step"] for r in records] != list(range(TRAIN_CLI_STEPS))
+    if ("epoch 0, step 0" not in stdout or f"steps/epoch {len(loader)};" not in stdout
+            or [r["step"] for r in records] != list(range(TRAIN_CLI_STEPS))
             or not all(math.isfinite(r["train/total"]) and math.isfinite(r["lr"]) for r in records)
-            or not {"rgb", "rgb_gt", "depth"} <= viz_dirs or [c.name for c in ckpts] != ["epoch001-4"]):
+            or not {"rgb", "rgb_gt", "depth"} <= viz_dirs or [c.name for c in ckpts] != ["epoch000-4"]):
         raise AssertionError(f"train_cli: records {records}, train_viz {viz_dirs}, checkpoints {ckpts}:\n"
                              f"{stdout[-2000:]}")
     ckpt_bytes = ckpts[0].stat().st_size
-    saved = torch.load(ckpts[0], map_location="cpu", mmap=True, weights_only=False)["model"]
+    state = torch.load(ckpts[0], map_location="cpu", mmap=True, weights_only=False)
+    if (state["epoch"], state["global_step"], state["epoch_step"]) != (0, TRAIN_CLI_STEPS, TRAIN_CLI_STEPS):
+        raise AssertionError(f"train_cli: the checkpoint's epoch, step and place in the epoch "
+                             f"{(state['epoch'], state['global_step'], state['epoch_step'])}")
+    saved = state["model"]
+    del state
     cli_moves = _adam_moves(pipe, {n: p.detach() for n, p in params.items()},
                             lambda n: saved[n].to("cuda", non_blocking=True), [0, 1])
     del saved
     _check_moves("train_cli (the CLI's checkpoint against W)", cli_moves)
     shutil.rmtree(out / "checkpoints")
-    log("train_cli", f"siu3r_tpu_torch.cli.train, configs/scannet.yaml (ViT-L 2-view 256x256 fp32 at depth "
-                     f"{CUT_DEPTH}, B=3, 2 + 4 "
-                     f"views), k=2, max_steps {TRAIN_CLI_STEPS}, from W at epoch -1: {first_s:.1f} s in its own "
+    log("train_cli", f"siu3r_tpu_torch.cli.train, configs/concat.yaml (ViT-L 2-view 256x256 fp32 at depth "
+                     f"{CUT_DEPTH}, B=3, 2 + 4 views) on a concat root of {len(dataset)} items "
+                     f"({dict(zip(('scannet', 'scannetpp', 'replica'), dataset._lens))}), {len(loader)} steps an "
+                     f"epoch, items each member gave the run {members}, k=2, max_steps {TRAIN_CLI_STEPS}, from W "
+                     f"at epoch -1: {first_s:.1f} s in its own "
                      f"process, totals {[round(r['train/total'], 4) for r in records]}, train_viz "
                      f"{sorted(viz_dirs)}, checkpoint {ckpts[0].name} ({ckpt_bytes / 2**30:.3f} GiB), its moves from "
                      f"W (decay out, in learning rates) {({k: round(v, 3) for k, v in cli_moves.items()})}")
 
-    # this process, from W: the accumulation at full width, then timing
+    # this process, from W: the accumulation at full width on the CLI's
+    # first batches, then timing
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items() if isinstance(v, np.ndarray)}
-               for b in loader]
+               for b in host]
     if not isinstance(pipe.optimizer, MultiSteps) or batches[0]["context_views_images"].shape[0] != 3:
         raise AssertionError("train_cli: not accumulating, or not at B = 3")
     before = {n: p.detach().clone() for n, p in params.items()}
@@ -3757,7 +3835,8 @@ def phase_train_cli() -> dict:
     restore_s = time.perf_counter() - t0
     state.unlink()
     med = statistics.median(times)
-    res = dict(first_run_s=first_s, totals=[r["train/total"] for r in records], cli_checkpoint_gib=ckpt_bytes / 2**30,
+    res = dict(first_run_s=first_s, items_per_member=members, steps_per_epoch=len(loader),
+               totals=[r["train/total"] for r in records], cli_checkpoint_gib=ckpt_bytes / 2**30,
                cli_moves=cli_moves, moves=moves, launches=launches, kernels=kernels, micro_step_median_s=med,
                micro_step_s=times, device_ms=device_ms, idle_share=1.0 - device_ms / (med * 1e3), top_device_ms=top,
                micro_steps_per_s=1.0 / med, peak_gib=peak, host_syncs=n_syncs,
@@ -3780,7 +3859,7 @@ def phase_train_cli() -> dict:
         for k, r in kernels.items()))
     for name, ms in top[:8]:
         log("train_cli", f"  device {ms:8.3f} ms  {name[:100]}")
-    del pipe, params, batches
+    del pipe, params, batches, host
     torch.cuda.empty_cache()
     return res
 

@@ -16,11 +16,15 @@ the train batch through the Visualizer every
 ``pipeline.log_training_result_interval`` steps (under ``train_viz/``), and
 saves the training state every ``trainer.check_val_every_n_epoch`` epochs,
 at the last epoch and at ``trainer.max_steps`` (under ``checkpoints/``).
-``--resume`` continues from such a state at its epoch + 1 and global step:
-the loader's order and the dataset's view draws are functions of (seed,
-epoch), and each step's random draws come from a generator seeded with
-(seed + 1, global step), so with one loader worker the resumed run trains
-as the uninterrupted one would have.
+``--resume`` continues from such a state at its epoch + 1 and global step,
+or, for a state that ``trainer.max_steps`` stopped inside an epoch, at the
+next batch of that epoch (the batches it trained are loaded again and not
+trained, so that the dataset's view draws go on as they did): the loader's
+order and the dataset's view draws are functions of (seed, epoch), and each
+step's random draws come from a generator seeded with (seed + 1, global
+step), so with one loader worker the resumed run trains as the
+uninterrupted one would have. (The JAX package's CLI resumes every state at
+its epoch + 1.)
 
 Runs on the GPU unless ``--device cpu`` is given. Under torchrun (one
 process a rank; ``--dist_backend gloo`` where ranks share a card, which NCCL
@@ -116,7 +120,7 @@ def _train(args) -> dict:
     import torch
 
     from siu3r_tpu_torch import parallel
-    from siu3r_tpu_torch.checkpoint_io import restore_train_state, save_train_state
+    from siu3r_tpu_torch.checkpoint_io import restore_train_state, save_train_state, saved_epoch_step
     from siu3r_tpu_torch.config import bind_scannet_classes, load_config
     from siu3r_tpu_torch.data import Loader
     from siu3r_tpu_torch.pipeline import EVAL_KEYS, Pipeline, gather_eval_arrays
@@ -148,11 +152,16 @@ def _train(args) -> dict:
              f"accumulate_grad_batches {cfg.trainer.accumulate_grad_batches}; optimizer "
              f"{type(getattr(pipe.optimizer, 'inner', pipe.optimizer)).__name__}")
 
-    start_epoch, global_step = 0, 0
+    start_epoch, global_step, skip = 0, 0, 0
     if args.resume:
         epoch, global_step = restore_train_state(args.resume, pipe)
-        start_epoch = epoch + 1
-        log.info(f"resumed {args.resume}: epoch {start_epoch}, step {global_step}")
+        done = saved_epoch_step(args.resume)
+        if done is not None and done < steps_per_epoch:
+            start_epoch, skip = epoch, done
+        else:
+            start_epoch = epoch + 1
+        log.info(f"resumed {args.resume}: epoch {start_epoch}, step {global_step}"
+                 + (f", after the epoch's first {skip} batches" if skip else ""))
 
     # LearningRateMonitor equivalent: the base group's schedule
     lr_of = make_lr_schedule(cfg.optimizer.lr, cfg.optimizer.warm_up_epochs, cfg.trainer.max_epochs,
@@ -178,7 +187,11 @@ def _train(args) -> dict:
     for epoch in range(start_epoch, cfg.trainer.max_epochs):
         t_epoch = time.time()
         loader.set_epoch(epoch)
+        epoch_step = 0
         for batch in loader:
+            if epoch_step < skip:  # trained before the resume
+                epoch_step += 1
+                continue
             if max_steps >= 0 and global_step >= max_steps:
                 break
             inputs = {k: torch.from_numpy(v).to(device) for k, v in parallel.shard_batch(batch).items()
@@ -197,6 +210,8 @@ def _train(args) -> dict:
                 history.log(global_step, epoch=epoch, lr=lr_of(global_step),
                             **{f"train/{k}": v for k, v in vals.items()})
             global_step += 1
+            epoch_step += 1
+        skip = 0
         log.info(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s")
         history.log(global_step, epoch=epoch, epoch_seconds=time.time() - t_epoch)
         hit_max_steps = max_steps >= 0 and global_step >= max_steps
@@ -205,7 +220,7 @@ def _train(args) -> dict:
             ckpt = out_dir / "checkpoints" / f"epoch{epoch:03d}-{global_step}"
             if rank == 0:
                 ckpt.parent.mkdir(parents=True, exist_ok=True)
-            save_train_state(ckpt, pipe, epoch, global_step)
+            save_train_state(ckpt, pipe, epoch, global_step, epoch_step)
             saved.append(str(ckpt))
             log.info(f"saved checkpoint {ckpt}")
         if hit_max_steps:
